@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Per-iteration HBM traffic audit of the CG loop (VERDICT-r4 task #6).
+"""Per-iteration memory traffic audit of the CG loop.
 
 Decomposes one CG iteration at a benchmark grid into its measured phase kernel times
 (paired-chain slope protocol, the same discipline as ops.DeviceOperator.kernel_time_ms)
@@ -18,7 +18,8 @@ Also measures both full solves (fused while_loop, b = ones) and a 0-iteration so
 (the fixed dispatch/readback overhead), so the audit closes end-to-end:
     phases_sum ≈ (solve_ms − fixed_ms) / iterations
 
-Writes docs/results/cg_iter_audit_<g>_v5e.json.
+Writes cg_iter_audit_<g>_<device>.json (``--out`` overrides), the device named as JAX
+reports it.
 
     python scripts/audit_cg_iteration.py [--grid 20480] [--reps 3]
 """
@@ -44,8 +45,7 @@ from tpusparse.solvers import cg  # noqa: E402
 
 
 def _sync(tree):
-    leaves = jax.tree_util.tree_leaves(tree)
-    return float(jnp.sum(leaves[0].ravel()[:1]))
+    return jax.block_until_ready(tree)
 
 
 def chain_slope_ms(step, carry0, consts=(), k_lo=4, k_hi=16, reps=3):
@@ -53,8 +53,8 @@ def chain_slope_ms(step, carry0, consts=(), k_lo=4, k_hi=16, reps=3):
     inside one jitted program (fusion fence between applies — see
     ops.DeviceOperator._chain_program).  ``consts`` are the loop-invariant device fields
     the step reads — passed as JIT ARGUMENTS, never closed over (a closed-over (g, g)
-    field becomes a 1.68 GB inline constant at 20480² and kills the remote compile —
-    the operator-registry invariant, ops._wrap_ops)."""
+    field becomes a multi-GB inline constant in the compiled program — the
+    operator-registry invariant, ops._wrap_ops)."""
 
     @functools.partial(jax.jit, static_argnames=("k",))
     def prog(carry, consts, k):
@@ -222,8 +222,8 @@ def main():
         "per_iter_ms"]
     out["recompute_loop"]["closure_pct"] = 100 * recomp_sum / out["recompute_loop"][
         "per_iter_ms"]
-    path = args.out or os.path.join(os.path.dirname(__file__), "..", "docs", "results",
-                                    f"cg_iter_audit_{g}_v5e.json")
+    kind = info["device_kind"].lower().replace(" ", "_")
+    path = args.out or f"cg_iter_audit_{g}_{kind}.json"
     with open(path, "w") as f:
         json.dump(out, f, indent=2)
         f.write("\n")

@@ -1,14 +1,14 @@
 #!/usr/bin/env python
-"""Render the committed format-comparison table from the measured JSON artifacts.
+"""Render a format-comparison table from ``spmv_bench --json`` artifacts.
 
 The reference publishes a per-format/per-size SpMV table (README.md:110-116,
-docs/results_spmv_a100_manual.json).  This renders the tpusparse analog from
-``docs/results/spmv_<g>_v5e_<mode>.json`` — every registered mode × every benchmark size
-gets a measured row, or an EXPLAINED absence (the honest "why it can't run" rows the
-round-2 review asked for).  Output is GitHub markdown, pasted into
-docs/results/GENERIC_COMPARISON.md by the maintainer (regenerate, don't hand-edit).
+docs/results_spmv_a100_manual.json).  This renders the tpusparse analog from a directory of
+``spmv_bench`` JSON results: one row per mode, one column per grid, each cell the kernel
+time and bandwidth, and the device named from the artifacts themselves (several devices in
+one directory are an error: a table compares on one card).
 
-    python scripts/format_table.py [--dir docs/results] [--sizes 2048,...]
+    python -m tpusparse.cli.spmv_bench gen:10240 --mode=stencil5,csr --json=out/spmv.json
+    python scripts/format_table.py --dir out [--csv out/table.csv]
 """
 
 from __future__ import annotations
@@ -18,294 +18,80 @@ import csv
 import glob
 import json
 import os
-import re
 import sys
-
-MODES = ["stencil5", "stencil5-bf16c", "stencil5-const", "stencil5-xla",
-         "stencil5-const-xla", "csr", "dia", "dia-xla", "csr-xla", "bcoo"]
-
-# Explained absences: (mode, size) pairs that cannot or should not run, with the reason.
-# Anything not listed and not measured renders as "not measured" so gaps stay loud.
-_CSRXLA_OOM = ("measured OOM: XLA tile-pads the [n,5] ELL gather operand to T(8,128) — "
-               "8 GB temp at 4096², 53.7 GB at 10240² (compile logs in repo history); "
-               "measured through 2560")
-ABSENT = {
-    # (csr, 15360) was pack-time bound for the LADDER pack (>1 h of per-row host
-    # analysis); the vectorized affine pack closed it (round 4) and the rot pack's
-    # vals-only operand closed (csr, 20480) in round 5 — both are measured rows now.
-    ("stencil5-xla", 20480): "measured OOM (round-5 campaign, RESOURCE_EXHAUSTED in "
-                             "/tmp/r5a_sxla20480.log): f32 planes 8.4 GB + x/y 3.4 GB + "
-                             "the XLA shifted-pads formulation's materialized neighbor "
-                             "temps exceed 15.75 GB HBM; the Pallas rows cover 20480²",
-    ("csr-xla", 4096): _CSRXLA_OOM,
-    ("csr-xla", 10240): _CSRXLA_OOM,
-    ("csr-xla", 15360): "see 4096 row (OOM grows with n)",
-    ("csr-xla", 20480): "see 4096 row (OOM grows with n)",
-    ("bcoo", 10240): "measured compiler failure (round-5 campaign, "
-                     "/tmp/r5o_bcoo10240.log): the XLA TPU compiler SIGSEGVs building "
-                     "the 524M-nnz BCOO matvec program; measured through 4096 "
-                     "(1.72 s/apply there, linear in nnz)",
-    ("bcoo", 15360): "see 10240 row (compiler failure at smaller nnz); CG head-to-head "
-                     "at 4096 in GENERIC_COMPARISON.md",
-    ("bcoo", 20480): "see 10240 row; additionally nnz·(4+8) B of BCOO index+value "
-                     "device arrays = 25 GB > 15.75 GB HBM",
-    ("dia-xla", 20480): "measured compiler failure (round-5 campaign, "
-                        "/tmp/r5o_diaxla20480.log: tpu_compile_helper exit 1); oracle "
-                        "role covered by measured rows through 15360",
-}
 
 
 def load_rows(results_dir):
-    rows = {}
-    for path in glob.glob(os.path.join(results_dir, "spmv_*_v5e_*.json")):
-        m = re.match(r"spmv_(\d+)_v5e_(.+)\.json$", os.path.basename(path))
-        if not m:
-            continue
-        g, mode = int(m.group(1)), m.group(2)
+    """{(mode, grid): record} for every spmv artifact in the directory, and the device."""
+    rows, devices = {}, set()
+    for path in sorted(glob.glob(os.path.join(results_dir, "*.json"))):
         with open(path) as f:
             rec = json.load(f)
-        p = rec["benchmark"]["performance"]
-        rows[(mode, g)] = {
-            "ms": p.get("time_kernel_ms") or p["time_median_ms"],
-            "gbs": p["bandwidth_gbs"],
-            "gflops": p["gflops"],
-            "frac_ach": p.get("roofline_fraction_achievable"),
-            "dtype": p.get("dtype", "?"),
-            "flags": p.get("timing_flags") or [],
-            "raw": rec,
-        }
-    return rows
+        if rec.get("benchmark_type") != "spmv":
+            continue
+        b = rec["benchmark"]
+        rows[(b["mode"], b["matrix"]["grid_size"])] = rec
+        dev = rec.get("device", {})
+        smi = (dev.get("nvidia_smi") or [{}])[0]
+        devices.add((dev.get("device_kind", "unknown device"), smi.get("power.limit")))
+    if len(devices) > 1:
+        raise SystemExit(f"artifacts from several devices: {sorted(devices, key=str)}")
+    return rows, (devices.pop() if devices else None)
 
 
-def write_csv(rows, absent, sizes, path):
-    """REGENERATE the committed format-table CSV from the JSON artifacts (one row per
-    measured (mode, grid) at the table sizes, plus explained-absence rows) so the CSV can
-    never drift from the artifacts it summarizes — the round-3 review found exactly that
-    drift between GENERIC_COMPARISON.md and the per-run appended CSV."""
+def render(rows):
+    modes = sorted({m for m, _ in rows})
+    sizes = sorted({g for _, g in rows})
+    lines = ["| mode \\ grid | " + " | ".join(f"{g}²" for g in sizes) + " |",
+             "|---" * (len(sizes) + 1) + "|"]
+    for mode in modes:
+        cells = []
+        for g in sizes:
+            rec = rows.get((mode, g))
+            if rec is None:
+                cells.append("not measured")
+                continue
+            p = rec["benchmark"]["performance"]
+            flag = "†" if p.get("timing_flags") else ""
+            cells.append(f"{p['time_kernel_ms']:.3f} ms{flag} ({p['bandwidth_gbs']:.0f} GB/s)")
+        lines.append(f"| {mode} | " + " | ".join(cells) + " |")
+    return lines
+
+
+def write_csv(rows, path):
+    """One flattened row per artifact, every column the union of their fields."""
     from tpusparse.bench.export import _flatten
 
-    flat_rows = []
-    for (mode, g) in sorted(rows, key=lambda k: (k[1], k[0])):
-        if g not in sizes:
-            continue
-        flat = _flatten(rows[(mode, g)]["raw"])
-        flags = rows[(mode, g)]["flags"]
-        flat["benchmark.performance.timing_flags"] = ";".join(
-            f.split(":")[0] for f in flags)
-        flat_rows.append(flat)
-    for (mode, g), reason in sorted(absent.items(), key=lambda kv: (kv[0][1], kv[0][0])):
-        if g not in sizes or (mode, g) in rows:
-            continue
-        flat_rows.append({
-            "benchmark_type": "spmv",
-            "benchmark.mode": mode,
-            "benchmark.matrix.grid_size": g,
-            "benchmark.absent_reason": reason,
-        })
+    flat_rows = [_flatten(rows[k]) for k in sorted(rows, key=lambda k: (k[1], k[0]))]
     fieldnames = []
     for r in flat_rows:
-        for k in r:
-            if k not in fieldnames:
-                fieldnames.append(k)
+        fieldnames += [k for k in r if k not in fieldnames]
     with open(path, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=fieldnames, restval="")
         w.writeheader()
-        for r in flat_rows:
-            w.writerow(r)
-
-
-def _fmt_ms(ms):
-    return f"{ms:.2f} ms" if ms >= 0.1 else f"{ms * 1e3:.0f} µs"
-
-
-def write_generic_comparison(rows, results_dir, path):
-    """REGENERATE docs/results/GENERIC_COMPARISON.md entirely from the artifacts beside
-    it.  Rounds 3 and 4 both shipped this document with numbers its own directory's
-    artifacts contradicted (the builder's tooling existed but was never applied) — the fix
-    is for the TOOL to own the file: every number below is read from a committed JSON at
-    generation time, and a human never edits the file again."""
-    def cell(mode, g, field="ms"):
-        r = rows.get((mode, g))
-        return r[field] if r else None
-
-    sizes = [2048, 4096, 10240, 15360, 20480]
-    lines = [
-        "# STENCIL5 vs the generic gather baseline (the reference's headline comparison)",
-        "",
-        "The reference's central claim is its format comparison table (reference "
-        "README.md:110-116):",
-        "STENCIL5 vs cuSPARSE CSR at 10k-20k grids, 2.06-2.08x speedup on A100.  This is "
-        "the same",
-        "experiment on one TPU v5 lite (f32, paired-chain-differencing kernel times — the "
-        "slope",
-        "protocol of docs/PERFORMANCE.md; artifacts in this directory).",
-        "",
-        "REGENERATED by `python scripts/format_table.py --write-doc` from the JSON "
-        "artifacts",
-        "in this directory — do not hand-edit numbers.",
-        "",
-        "| Matrix size | csr (hand Pallas gather) | STENCIL5 (Pallas pipelined) | "
-        "Speedup | Bandwidth (stencil5) |",
-        "|---|---|---|---|---|",
-    ]
-    flagged = False
-    for g in sizes:
-        c, s = cell("csr", g), cell("stencil5", g)
-        if c is None or s is None:
-            continue
-        sr = rows[("stencil5", g)]
-        cv = rows[("csr", g)].get("raw", {}).get("benchmark", {}).get("kernel_variant")
-        if sr["flags"]:
-            # sub-knee working set: the implied bandwidth is an on-chip figure, not an
-            # HBM roofline claim (performance.timing_flags in the artifact)
-            bw = f"{sr['gbs']:.0f} GB/s† (on-chip regime)"
-            flagged = True
-        else:
-            bw = f"{sr['gbs']:.0f} GB/s" + (
-                f" = {100 * sr['frac_ach']:.1f}% of the measured ceiling"
-                if sr.get("frac_ach") else "")
-        unk = g * g / 1e6
-        # a sub-knee stencil time is an on-chip figure; the speedup against the
-        # HBM-bound gather inherits the caveat and carries the dagger too
-        speed = f"**{c / s:.1f}×**" + ("†" if sr["flags"] else "")
-        lines.append(
-            f"| **{g}²** ({unk:.1f}M unknowns) | {_fmt_ms(c)}"
-            + (f" ({cv} pack)" if cv else "")
-            + f" | {_fmt_ms(s)} | {speed} | {bw} |")
-    if flagged:
-        lines += ["",
-                  "† working set below the measured on-chip residency knee (128 MiB): "
-                  "chained applies run from on-chip memory, so the implied bandwidth is "
-                  "an on-chip figure, not an HBM roofline claim — see the artifact's "
-                  "`performance.timing_flags`."]
-    g0 = 2048
-    cx, bc, ch, st = (cell("csr-xla", g0), cell("bcoo", g0), cell("csr", g0),
-                      cell("stencil5", g0))
-    if cx and bc and ch and st:
-        lines += [
-            "",
-            "And against the *platform's own* generic sparse facilities (what a JAX user "
-            "gets without a",
-            f"hand kernel) at {g0}² — the sizes where they run at all:",
-            "",
-            "| Generic path | 2048² SpMV | vs the hand gather kernel | vs STENCIL5 |",
-            "|---|---|---|---|",
-            f"| `csr-xla` (XLA gather over ELL) | {_fmt_ms(cx)} | {cx / ch:.0f}× slower "
-            f"| {cx / st:.0f}× |",
-            f"| `bcoo` (`jax.experimental.sparse`) | {_fmt_ms(bc)} | {bc / ch:.0f}× "
-            f"slower | {bc / st:.0f}× |",
-        ]
-    # CG head-to-head from the committed solver artifacts
-    try:
-        with open(os.path.join(results_dir, "cg_4096_v5e.json")) as f:
-            cg_st = json.load(f)
-        with open(os.path.join(results_dir, "cg_baseline_bcoo_4096.json")) as f:
-            cg_bc = json.load(f)
-        t_st = cg_st["timing"]["total_median_ms"]
-        t_bc = cg_bc["timing"]["total_median_ms"]
-        i_st = cg_st["convergence"]["iterations"]
-        i_bc = cg_bc["convergence"]["iterations"]
-        lines += [
-            "",
-            "End-to-end CG head-to-head at a NON-toy size (the AmgX-comparison role, "
-            "SURVEY §2.7 —",
-            "artifacts `cg_baseline_bcoo_4096.json`, `cg_4096_v5e.json`):",
-            "",
-            "| solver @ 4096² (16.8M unknowns) | median | iterations |",
-            "|---|---|---|",
-            f"| stencil5 CG | **{t_st:.1f} ms** | {i_st} |",
-            f"| bcoo (`jax.experimental.sparse`) CG | {t_bc:,.0f} ms | {i_bc}"
-            + (" (identical)" if i_bc == i_st else "") + " |",
-        ]
-    except FileNotFoundError:
-        pass
-    c10, s10 = cell("csr", 10240), cell("stencil5", 10240)
-    ratio10 = f"{c10 / s10:.1f}×" if c10 and s10 else "n/a"
-    lines += [
-        "",
-        "Reading the tables together:",
-        "",
-        "- The reference's 2.07× is cuSPARSE (a hand-tuned gather kernel) vs a hand "
-        "stencil kernel.",
-        "  The honest TPU analog of cuSPARSE is our hand Pallas gather kernel "
-        "(`mode=csr`,",
-        "  kernels/gather_ell.py) — windowed ELL with pack-time measured column locality "
-        "(affine",
-        "  windows + exact-diagonal rot slots), the same family of tricks cuSPARSE's "
-        "adaptive",
-        f"  paths use.  Against it, structure exploitation is worth {ratio10} at 10240² "
-        "on TPU",
-        "  (vs 2.07× on A100): even a good TPU gather pays index arithmetic and window "
-        "DMA",
-        "  overfetch the stencil formulation never executes.",
-        "- The XLA-gather/BCOO rows are the gap the reference never shows: its \"generic "
-        "baseline\"",
-        "  is already a decade-tuned vendor kernel.  On TPU that baseline had to be "
-        "built (this",
-        "  repo); XLA's own gather lowering is not a credible SpMV baseline.",
-        "- CG end-to-end with each operator converges in the identical iteration count — "
-        "the",
-        "  operator seam guarantees the comparison is apples-to-apples.",
-        "",
-        "Reproduce:",
-        "",
-        "```bash",
-        "python -m tpusparse.cli.spmv_bench gen:10240 --mode=stencil5,csr --runs=10 "
-        "--resident-x \\",
-        "    --ceiling-from=docs/results/ceiling_probe_tpu_v5_lite.json",
-        "python scripts/run_all.py --size=4096   # includes the CG head-to-heads",
-        "python scripts/format_table.py --write-doc --csv "
-        "docs/results/spmv_format_table.csv",
-        "```",
-        "",
-    ]
-    with open(path, "w") as f:
-        f.write("\n".join(lines))
-    return path
+        w.writerows(flat_rows)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="docs/results")
-    ap.add_argument("--sizes", default="2048,2560,4096,10240,15360,20480")
-    ap.add_argument("--csv", default=None,
-                    help="also REGENERATE this CSV from the artifacts (replaces the "
-                         "append-mode file; measured + explained-absence rows)")
-    ap.add_argument("--write-doc", action="store_true",
-                    help="REGENERATE docs/results/GENERIC_COMPARISON.md from the "
-                         "artifacts (the tool owns the document; no hand-edited numbers)")
+    ap.add_argument("--dir", required=True, help="directory of spmv_bench JSON artifacts")
+    ap.add_argument("--csv", default=None, help="also write the artifacts as one CSV")
     args = ap.parse_args()
-    sizes = [int(s) for s in args.sizes.split(",")]
-    rows = load_rows(args.dir)
-
-    print("| mode \\ grid | " + " | ".join(f"{g}²" for g in sizes) + " |")
-    print("|---" * (len(sizes) + 1) + "|")
-    for mode in MODES:
-        cells = []
-        for g in sizes:
-            r = rows.get((mode, g))
-            if r is not None:
-                frac = (f", {100 * r['frac_ach']:.0f}% ceil"
-                        if r.get("frac_ach") and mode.startswith("stencil") else "")
-                star = "†" if r["flags"] else ""
-                cells.append(f"{r['ms']:.2f} ms{star} ({r['gbs']:.0f} GB/s{frac})")
-            elif (mode, g) in ABSENT:
-                cells.append(f"— {ABSENT[(mode, g)]}")
-            else:
-                cells.append("not measured")
-        print(f"| {mode} | " + " | ".join(cells) + " |")
-    if any(rows[k]["flags"] for k in rows if k[1] in sizes and k[0] in MODES):
-        print("\n† timing-validity flags set (sub-knee working set or sub-ms kernel "
-              "time): bandwidth is an on-chip figure, not an HBM roofline claim — see "
-              "the artifact's performance.timing_flags.")
+    rows, device = load_rows(args.dir)
+    if not rows:
+        print(f"no spmv artifacts in {args.dir}", file=sys.stderr)
+        return 1
+    kind, power = device
+    print(f"SpMV kernel time (device-only, chained) on {kind}"
+          + (f", power limit {power}" if power else "") + ":\n")
+    print("\n".join(render(rows)))
+    if any(r["benchmark"]["performance"].get("timing_flags") for r in rows.values()):
+        print("\n† timing-validity flag set: the implied bandwidth is no roofline claim "
+              "(see the artifact's performance.timing_flags).")
     if args.csv:
         sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-        write_csv(rows, ABSENT, sizes, args.csv)
-        print(f"\n[csv regenerated: {args.csv}]", file=sys.stderr)
-    if args.write_doc:
-        doc = write_generic_comparison(
-            rows, args.dir, os.path.join(args.dir, "GENERIC_COMPARISON.md"))
-        print(f"[doc regenerated: {doc}]", file=sys.stderr)
+        write_csv(rows, args.csv)
+        print(f"\n[csv written: {args.csv}]", file=sys.stderr)
     return 0
 
 

@@ -24,7 +24,7 @@ MAX_LEN = 99
 MAX_LEN_CPP = 100
 
 PY_DIRS = ["tpusparse", "tests", "scripts"]
-PY_FILES = ["bench.py", "__graft_entry__.py"]
+PY_FILES = ["bench.py", "__graft_entry__.py", "chip_smoke.py"]
 CPP_DIRS = ["csrc"]
 
 # modules imported for side effects / re-export, exempt from the unused-import check

@@ -61,8 +61,8 @@ def main() -> int:
                 if (n, mode) in spmv:
                     xs.append(i + k * width)
                     perf = spmv[(n, mode)]
-                    # kernel-only time (transfer-inclusive medians are link-bound on
-                    # remote deployments and would mislead the comparison)
+                    # kernel-only time (transfer-inclusive medians measure the host
+                    # link and would mislead the comparison)
                     tk = perf.get("time_kernel_ms")
                     ts.append(tk if tk is not None and tk > 0
                               else perf["time_median_ms"])
@@ -123,7 +123,7 @@ def main() -> int:
     C_OURS, C_REF = "#2a78d6", "#eb6834"
     INK, MUTED = "#333333", "#777777"
     sizes_cg = {}
-    device_kind = "TPU"
+    device_kinds = set()
     for p in sorted(glob.glob(f"{args.indir}/*.json")):
         with open(p) as f:
             r = json.load(f)
@@ -133,10 +133,13 @@ def main() -> int:
             continue
         rows = r["matrix"]["rows"]
         t = r["timing"]["total_median_ms"]
-        device_kind = r.get("device", {}).get("device_kind", device_kind)
+        device_kinds.add(r["device"]["device_kind"])
         if rows not in sizes_cg or t < sizes_cg[rows]:
             sizes_cg[rows] = t
+    if len(device_kinds) > 1:
+        raise SystemExit(f"CG artifacts from several devices: {sorted(device_kinds)}")
     if len(sizes_cg) >= 2:
+        device_kind = device_kinds.pop()
         fig, ax = plt.subplots(figsize=(7, 4.5))
         xs = sorted(sizes_cg)
         ax.plot(xs, [sizes_cg[x] for x in xs], "-", lw=2, marker="o", ms=8,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Roofline figure — the reference's scripts/plotting/plot_roofline.py role.
 
-Reads measured SpMV result JSONs (docs/results/spmv_*.json by default) plus the ceiling
-probe artifact (docs/results/ceiling_probe_*.json) and draws the classic roofline:
+Reads measured SpMV result JSONs (results/json/spmv_*.json by default) plus the ceiling
+probe artifact (ceiling_probe_*.json in the same directory) and draws the classic roofline:
 arithmetic intensity (x, log) vs achieved GFLOPS (y, log), under BOTH ceilings —
 the nominal spec-sheet HBM slope and the MEASURED-achievable slope (bench.probes).
 Only measured data is plotted (the reference's plotting hardcodes showcase numbers).
@@ -22,8 +22,8 @@ import sys
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--indir", default="docs/results")
-    ap.add_argument("--out", default="docs/figures/roofline.png")
+    ap.add_argument("--indir", default="results/json")
+    ap.add_argument("--out", default="results/plots/roofline.png")
     args = ap.parse_args()
     try:
         import matplotlib
@@ -47,7 +47,7 @@ def main() -> int:
         perf, an = b["performance"], b["analysis"]
         points.append((b["mode"], b["matrix"]["rows"], an["arithmetic_intensity"],
                        perf["gflops"]))
-        device = r["device"].get("device_kind", device)
+        device = r["device"]["device_kind"]
     probes = sorted(glob.glob(f"{args.indir}/ceiling_probe_*.json"))
     achievable_bw = None
     if probes:
@@ -62,7 +62,7 @@ def main() -> int:
         sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
         from tpusparse.bench.metrics import chip_peaks
 
-        nb, pf = chip_peaks(device or "TPU v5 lite")
+        nb, pf = chip_peaks(device)  # raises for a device without published peaks
         nominal_bw = nominal_bw or nb
         peak_flops = pf
 
@@ -77,7 +77,7 @@ def main() -> int:
     # ceilings: min(bw·AI, peak_flops); identity via line style + inline label, not color
     nom = np.minimum(nominal_bw * ai_grid, peak_flops)
     ax.plot(ai_grid, nom, ls="--", lw=1.4, color=MUTED,
-            label=f"nominal HBM roofline ({nominal_bw:.0f} GB/s spec)")
+            label=f"published memory roofline ({nominal_bw:.0f} GB/s)")
     if achievable_bw:
         ach = np.minimum(achievable_bw * ai_grid, peak_flops)
         ax.plot(ai_grid, ach, ls="-", lw=1.6, color=INK,
@@ -101,7 +101,7 @@ def main() -> int:
     ax.set_xlabel("arithmetic intensity (FLOP / byte)", color=INK)
     ax.set_ylabel("achieved GFLOP/s", color=INK)
     g = max(r for r, _, _ in best.values())
-    ax.set_title(f"SpMV roofline — {device or 'TPU'} (largest measured size, "
+    ax.set_title(f"SpMV roofline — {device} (largest measured size, "
                  f"n = {g:,} rows)", color=INK, fontsize=11)
     ax.grid(True, which="both", color="#e6e6e6", lw=0.5)
     for s in ("top", "right"):

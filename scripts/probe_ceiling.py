@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Measure and record this deployment's achievable HBM ceiling (bench.probes).
+"""Measure and record this card's achievable memory bandwidth ceiling (bench.probes).
 
-Writes docs/results/ceiling_probe_<kind>.json — the probe artifact backing every
-``roofline_fraction_achievable`` number in the committed results."""
+Writes results/ceiling_probe_<kind>.json — the probe artifact that ``spmv_bench
+--ceiling-from`` reads for ``roofline_fraction_achievable``."""
 
 import json
 import os
@@ -26,8 +26,7 @@ def main():
         achievable_fraction_of_nominal=r["achievable_gbs"] / nominal,
     )
     kind = info["device_kind"].lower().replace(" ", "_")
-    out = os.path.join(os.path.dirname(__file__), "..", "docs", "results",
-                       f"ceiling_probe_{kind}.json")
+    out = os.path.join("results", f"ceiling_probe_{kind}.json")
     with open(out, "w") as f:
         json.dump(r, f, indent=2)
         f.write("\n")

@@ -85,7 +85,7 @@ def main() -> int:
     print("SUMMARY")
     print("=" * 70)
     # kernel-only times for the speedup comparison (reference methodology; the
-    # transfer-inclusive medians are dominated by link bandwidth on remote deployments)
+    # transfer-inclusive medians measure the host link as much as the kernel)
     def _kernel_ms(perf):
         t = perf.get("time_kernel_ms")
         return t if t is not None and t > 0 else perf["time_median_ms"]

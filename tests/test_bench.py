@@ -63,16 +63,30 @@ class TestMetrics:
         st = generate.make_stencil5(8)
         op = ops.get_operator("stencil5", st)
         m = metrics.calculate_spmv_metrics(
-            op, 1.0, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5"
+            op, 1.0, dtype_itemsize=4, device_kind="NVIDIA H100 80GB HBM3", mode="stencil5"
         )
         assert 0 < m.roofline_fraction < 1e-3  # 1 ms for a tiny matrix ⇒ tiny fraction
         assert m.bound == "memory-bound"
         assert m.gflops == pytest.approx(2 * op.nnz / 1e6)  # 1 ms ⇒ 2·nnz·1e3 FLOP/s
 
     def test_chip_peaks_known_kinds(self):
-        assert metrics.chip_peaks("TPU v5 lite")[0] == 819.0
-        assert metrics.chip_peaks("TPU v5p something")[0] == 2765.0
-        assert metrics.chip_peaks("unknown chip")[0] == 819.0
+        # NVIDIA H100 data sheet: SXM5 3,350 GB/s and 67 TFLOP/s f32; PCIe 2,000 GB/s
+        assert metrics.chip_peaks("NVIDIA H100 80GB HBM3") == (3350.0, 67_000.0)
+        assert metrics.chip_peaks("NVIDIA H100 PCIe")[0] == 2000.0
+
+    @pytest.mark.parametrize("kind", ["AMD Instinct MI300X", "cpu", "NVIDIA A100-SXM4-80GB",
+                                      "NVIDIA H100"])
+    def test_chip_peaks_unknown_kind_raises(self, kind):
+        with pytest.raises(ValueError, match="no published peaks"):
+            metrics.chip_peaks(kind)
+
+    def test_unknown_kind_gets_no_roofline_share(self):
+        st = generate.make_stencil5(8)
+        op = ops.get_operator("stencil5", st)
+        m = metrics.calculate_spmv_metrics(op, 1.0, dtype_itemsize=8, device_kind="cpu",
+                                           mode="stencil5")
+        assert m.roofline_fraction is None and m.bound == "unknown"
+        assert m.bandwidth_gbs > 0
 
     def test_cg_gflops(self):
         assert metrics.cg_gflops(1000, 10, 2.0) == pytest.approx(2 * 1000 * 10 / 2e-3 / 1e9)
@@ -186,8 +200,8 @@ class TestKernelTimeProtocol:
         assert measured <= 3.0 * per_apply_ms, measured
 
     def test_fixed_overhead_cancels_in_slope(self):
-        """A constant per-CHAIN cost (the dispatch + readback round trip on tunneled
-        deployments, ~25 ms) must NOT be charged to the per-apply time — the differencing
+        """A constant per-CHAIN cost (dispatch and the final sync) must NOT be charged to
+        the per-apply time — the differencing
         protocol's defining property.  Naive chain-averaging fails this: an 8-chain of
         5 ms applies with a 60 ms fixed cost averages 12.5 ms/apply."""
         import time
@@ -318,49 +332,41 @@ def test_chain_program_matches_sequential_applies():
 
 
 def test_timing_validity_flags():
-    """Round-3 review: artifacts reported up to 233% of HBM peak with no caveat.  Metrics
-    must now flag sub-ms kernel times (slope noise) and >100%-of-peak bandwidths, and the
-    export must carry the flags."""
-    from tpusparse import formats, ops
-    from tpusparse.bench import metrics
-
-    st = formats.Stencil5(grid_size=16, planes=None, constant=(5.0, -1.0))
-    op = ops.get_operator("stencil5", st)
-    # sub-ms kernel time on an accelerator kind -> noise flag
-    m = metrics.calculate_spmv_metrics(
-        op, 0.05, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5")
-    assert any("noise" in f for f in m.timing_flags)
-    # tiny working set (16*16*7*4 B << knee): >peak bandwidth is attributed to on-chip
-    # residency (round-4 knee probe), not declared impossible
-    m2 = metrics.calculate_spmv_metrics(
-        op, 1e-6, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5")
-    assert any("onchip_knee" in f for f in m2.timing_flags)
-    assert any("exceeds_hbm_peak" in f for f in m2.timing_flags)
-    assert not any("exceeds_nominal_peak" in f for f in m2.timing_flags)
-    # big working set (>= knee) at impossible speed -> physically-impossible flag
+    """An implied bandwidth above the published peak or the measured ceiling is flagged as
+    no roofline claim, and the export carries the flags."""
     import types
 
-    op_big = types.SimpleNamespace(name="stencil5", num_rows=8192 * 8192,
-                                   nnz=5 * 8192 * 8192)
-    m_imp = metrics.calculate_spmv_metrics(
-        op_big, 0.9, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5")
-    assert any("exceeds_nominal_peak" in f for f in m_imp.timing_flags)
-    # healthy time on a big working set -> no flags
-    m3 = metrics.calculate_spmv_metrics(
-        op_big, 100.0, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5")
-    assert m3.timing_flags == ()
-    # flags survive into the JSON dict and the human report
-    from tpusparse.bench import export
+    from tpusparse import formats, ops
+    from tpusparse.bench import export, metrics
     from tpusparse.bench.stats import compute_stats
 
+    h100 = "NVIDIA H100 80GB HBM3"
+    st = formats.Stencil5(grid_size=16, planes=None, constant=(5.0, -1.0))
+    op = ops.get_operator("stencil5", st)
+    # 16*16*7*4 B in a nanosecond: far above any memory peak (cache residency or error)
+    m2 = metrics.calculate_spmv_metrics(
+        op, 1e-6, dtype_itemsize=4, device_kind=h100, mode="stencil5")
+    assert any("exceeds_nominal_peak" in f for f in m2.timing_flags)
+    op_big = types.SimpleNamespace(name="stencil5", num_rows=8192 * 8192,
+                                   nnz=5 * 8192 * 8192)
+    # healthy time on a big working set -> no flags
+    m3 = metrics.calculate_spmv_metrics(
+        op_big, 100.0, dtype_itemsize=4, device_kind=h100, mode="stencil5")
+    assert m3.timing_flags == ()
+    # above a measured ceiling but below the published peak
+    m4 = metrics.calculate_spmv_metrics(
+        op_big, 2.0, dtype_itemsize=4, device_kind=h100, mode="stencil5",
+        achievable_gbs=500.0)
+    assert any("exceeds_measured_ceiling" in f for f in m4.timing_flags)
+    # flags survive into the JSON dict
     res = export.spmv_result_dict(
         mode="stencil5", matrix_name="t", op=op, metrics=m2,
-        stats=compute_stats([1.0, 1.0, 1.0]), sysinfo={"device_kind": "TPU v5 lite"},
+        stats=compute_stats([1.0, 1.0, 1.0]), sysinfo={"device_kind": h100},
         sum_y=0.0, norm2_y=0.0)
     assert res["benchmark"]["performance"]["timing_flags"]
     res_ok = export.spmv_result_dict(
         mode="stencil5", matrix_name="t", op=op, metrics=m3,
-        stats=compute_stats([1.0, 1.0, 1.0]), sysinfo={"device_kind": "TPU v5 lite"},
+        stats=compute_stats([1.0, 1.0, 1.0]), sysinfo={"device_kind": h100},
         sum_y=0.0, norm2_y=0.0)
     assert "timing_flags" not in res_ok["benchmark"]["performance"]
 
@@ -394,25 +400,3 @@ def test_dispatch_correction_marks_clipped_buckets():
         solver="s", mode="m", matrix_name="t", op=_Op(), cg_stats=st,
         bench_stats=None, sysinfo={}, sum_x=0.0, norm2_x=0.0)
     assert res["timing"]["dispatch_clipped_buckets"] == "halo"
-
-
-def test_onchip_knee_probe_and_flag_units():
-    """The knee probe returns one point per footprint; the metrics knee flag names MiB and
-    is a disclosure (no 'impossible' wording) — round-4 on-chip residency finding."""
-    from tpusparse.bench import metrics, probes
-
-    r = probes.measure_onchip_knee(sizes_mib=(1,), reps=1)
-    assert len(r["points"]) == 1
-    assert r["points"][0]["footprint_mib"] == 1
-    assert r["points"][0]["copy_chain_gbs"] > 0
-    import types
-
-    tiny = types.SimpleNamespace(name="stencil5", num_rows=64 * 64, nnz=5 * 64 * 64)
-    m = metrics.calculate_spmv_metrics(
-        tiny, 10.0, dtype_itemsize=4, device_kind="TPU v5 lite", mode="stencil5")
-    knee = [f for f in m.timing_flags if "onchip_knee" in f]
-    assert knee and "impossible" not in knee[0]
-    # cpu device_kind never carries accelerator-residency flags
-    m_cpu = metrics.calculate_spmv_metrics(
-        tiny, 10.0, dtype_itemsize=4, device_kind="cpu", mode="stencil5")
-    assert not any("onchip" in f for f in m_cpu.timing_flags)

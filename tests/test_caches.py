@@ -14,16 +14,6 @@ import jax.numpy as jnp
 
 import tpusparse
 
-import pytest as _pytest  # noqa: E402
-
-# These suites solve in f64 over 4-8-device meshes: the virtual multi-device
-# CPU mesh + interpret-mode f64 Pallas.  On a real accelerator backend they
-# have neither the devices nor f64 kernels - skip, like the other f64 suites.
-pytestmark = _pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 multi-device mesh tests are CPU/interpret-only",
-)
-
 from tpusparse.solvers import cg, cg_sharded
 
 

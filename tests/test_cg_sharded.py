@@ -16,10 +16,6 @@ from tpusparse.solvers import cg, cg_sharded
 from .test_cg import reference_cg
 
 
-_f64_kernels = pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 Pallas kernels are CPU/interpret-only (Mosaic has no f64)",
-)
 
 
 def _mesh(n):
@@ -30,7 +26,6 @@ def _mesh(n):
 
 @pytest.mark.parametrize("ndev", [1, 2, 4, 8])
 @pytest.mark.parametrize("mode", ["stencil5", "stencil5-const"])
-@_f64_kernels
 def test_sharded_iteration_parity(ndev, mode):
     g = 16
     st = generate.make_stencil5(g)
@@ -46,9 +41,8 @@ def test_sharded_iteration_parity(ndev, mode):
     np.testing.assert_allclose(np.asarray(x).ravel(), x_ref, rtol=1e-8, atol=1e-10)
 
 
-@_f64_kernels
 def test_sharded_recompute_matches_classic():
-    """Sharded recompute-Ap loop (the stencil5-const auto default) ≡ the classic loop:
+    """Sharded recompute-Ap loop (opt-in for stencil5-const) ≡ the classic loop:
     identical iteration count and solution, identical per-iteration halo volume."""
     g = 16
     mesh = _mesh(8)
@@ -61,7 +55,6 @@ def test_sharded_recompute_matches_classic():
     np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), rtol=1e-10)
 
 
-@_f64_kernels
 def test_sharded_checksums_match_across_shard_counts():
     """Sum(x)/Norm2(x) identical across shard counts within FP-reassociation tolerance
     (the reference documents ~0.15% variation for AmgX; ours is f64 + identical reduction
@@ -79,7 +72,6 @@ def test_sharded_checksums_match_across_shard_counts():
     np.testing.assert_allclose(norms, norms[0], rtol=1e-12)
 
 
-@_f64_kernels
 def test_sharded_matches_single_chip_solver():
     g = 32
     st = generate.make_stencil5(g)
@@ -239,7 +231,6 @@ class Test2DDecomposition:
         return cg.cg_solve(op, jnp.ones((g, g), jnp.float64))
 
     @pytest.mark.parametrize("shape", [(2, 4), (4, 2), (8, 1), (1, 8), (2, 2)])
-    @_f64_kernels
     def test_2d_parity_values(self, shape):
         import jax
 
@@ -254,7 +245,6 @@ class Test2DDecomposition:
         np.testing.assert_allclose(np.asarray(x2), np.asarray(x1), rtol=1e-12,
                                    atol=1e-12)
 
-    @_f64_kernels
     def test_2d_parity_const(self):
         import jax
 
@@ -288,7 +278,6 @@ class Test2DDecomposition:
             cg_sharded.cg_solve_sharded_2d(mesh, 24, dtype=jnp.float64)
 
 
-    @_f64_kernels
     def test_2d_overlap_matches_sync(self):
         """2-D interior/boundary-split (overlapped) SpMV ≡ the synchronous formulation —
         the same drift-free-by-construction property the 1-D overlap path proves."""

@@ -1,5 +1,5 @@
 """CLI smoke tests (the reference's CI smoke layer: help text, arg validation, error paths,
-then real runs — ci.yml:175-204, but here the kernels actually execute via interpret mode)."""
+then real runs — ci.yml:175-204, but here the operators actually execute, on the CPU)."""
 
 import json
 

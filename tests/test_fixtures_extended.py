@@ -1,26 +1,19 @@
 """Fixture-library parity with the reference's remaining generators
 (tests/helpers/matrix_fixtures.hpp:38-141): ill-conditioned, dense-block, unbalanced-rows,
 and 9-point stencil — pointed, as the reference does, at exactly the machinery they
-stress: the gather kernel's window/span logic, ELL pad ratios, the DIA diagonal set, and
+stress: the gather operator's arbitrary sparsity, ELL pad ratios, the DIA diagonal set, and
 CG's conditioning behavior."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from tests import fixtures
 from tpusparse import formats, ops
 from tpusparse.solvers import cg
 
-_f64_kernels = pytest.mark.skipif(
-    jax.default_backend() != "cpu",
-    reason="f64 Pallas kernels are CPU/interpret-only (Mosaic has no f64)",
-)
 
-
-@_f64_kernels
 def test_ill_conditioned_cg_and_analytic_solution():
     """SPD diagonal with κ = 1e8: CG must still converge (Krylov exactness gives ≤ n
     distinct-eigenvalue termination) and the solve of A x = ones has the analytic
@@ -37,7 +30,6 @@ def test_ill_conditioned_cg_and_analytic_solution():
     np.testing.assert_allclose(got, 1.0 / d, rtol=1e-3)
 
 
-@_f64_kernels
 @pytest.mark.parametrize("mode", ["csr", "csr-xla", "dia", "bcoo"])
 def test_ill_conditioned_spmv_exact(mode):
     """The extreme value range (1 … 1e-12) must survive every format's round trip."""
@@ -49,11 +41,10 @@ def test_ill_conditioned_spmv_exact(mode):
     np.testing.assert_allclose(y, csr.to_dense() @ x, rtol=1e-13, atol=0)
 
 
-@_f64_kernels
 @pytest.mark.parametrize("block,start", [(24, 100), (40, 0)])
 def test_dense_block_gather_window_stress(block, start):
     """One dense block inside an identity: ELL width jumps to ``block`` while most rows
-    carry 1 nnz — the worst case for the gather kernel's per-slot measured windows."""
+    carry 1 nnz — the worst case for the padded-ELL gather (mostly padding slots)."""
     n = 512
     csr = fixtures.dense_block(n, block, block_start=start)
     dense = csr.to_dense()
@@ -63,11 +54,10 @@ def test_dense_block_gather_window_stress(block, start):
     np.testing.assert_allclose(y, dense @ x, rtol=1e-12, atol=1e-12)
 
 
-@_f64_kernels
 def test_unbalanced_rows_span_overflow_machinery():
-    """Periodic heavy rows with nonzeros scattered across the FULL width: per-subtile
-    spans diverge and entries land in the overflow COO list (or the pack loudly falls
-    back) — either way the result must be exact."""
+    """Periodic heavy rows with nonzeros scattered across the FULL width: the ELL width is
+    set by the heavy rows and their gathers reach across the whole vector — the result
+    must be exact."""
     n = 2048
     csr = fixtures.unbalanced_rows(n, heavy_every=37, heavy_nnz=40)
     dense = csr.to_dense()
@@ -79,7 +69,6 @@ def test_unbalanced_rows_span_overflow_machinery():
     np.testing.assert_allclose(float(dot), x @ (dense @ x), rtol=1e-12)
 
 
-@_f64_kernels
 @pytest.mark.parametrize("mode", ["csr", "dia", "bcoo"])
 def test_ninepoint_stencil_generic_paths(mode):
     """9-point stencil: 9 distinct diagonals (DIA's natural case), NOT
@@ -101,7 +90,6 @@ def test_ninepoint_rejects_stencil5_extraction():
         formats.csr_to_stencil5(fixtures.ninepoint(8), grid_size=8)
 
 
-@_f64_kernels
 def test_ninepoint_dia_diagonal_set():
     """The DIA conversion must find exactly the 9 stencil offsets."""
     g = 16

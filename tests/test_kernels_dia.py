@@ -1,31 +1,19 @@
-"""Pallas DIA kernel: gather-free generic structured SpMV (kernels/dia.py)."""
+"""Diagonal-offset SpMV (the ``dia`` / ``dia-xla`` modes): gather-free y = Σ_d data[d]·shift(x)
+for matrices with few distinct diagonals."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tpusparse import formats, generate, ops
-from tpusparse.kernels import dia as dia_k
 
 from . import fixtures
 
-# f64 Pallas kernels cannot compile on TPU (Mosaic) — these tests exercise the f64 path and
-# are meaningful only where it exists (the CPU/x64 suite; SURVEY.md §7 "f64 on TPU")
-_f64_kernels = pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 Pallas kernels are CPU/interpret-only (Mosaic has no f64)",
-)
 
-
-
-def _dia_spmv(csr, x, block_rows128=8):
-    dia = formats.csr_to_dia(csr)
-    data128, offsets, n, nr = dia_k.pack_dia_operand(dia, jnp.float64)
-    xp = dia_k.x_to_lanes(jnp.asarray(x), nr)
-    y = dia_k.spmv_dia_pallas(
-        data128, xp, offsets=offsets, block_rows128=block_rows128, interpret=True
-    )
-    return np.asarray(y).reshape(-1)[:n]
+def _dia_spmv(csr, x, mode="dia-xla"):
+    op = ops.get_operator(mode, csr, dtype=jnp.float64)
+    y, _ = op.run_timed(x)
+    return y
 
 
 @pytest.mark.parametrize(
@@ -39,15 +27,15 @@ def _dia_spmv(csr, x, block_rows128=8):
         lambda: fixtures.spd_stencil_csr(24),
     ],
 )
-def test_dia_pallas_matches_dense(make):
+def test_dia_matches_dense(make):
     csr = make()
     x = np.random.RandomState(1).randn(csr.num_cols)
     y_ref = csr.to_dense() @ x
     np.testing.assert_allclose(_dia_spmv(csr, x), y_ref, rtol=1e-12, atol=1e-12)
 
 
-def test_dia_pallas_large_offsets():
-    """Offsets beyond one 128-lane row exercise the multi-row window decomposition."""
+def test_dia_large_offsets():
+    """Offsets far from the main diagonal (±300 in a 600-row matrix)."""
     n = 600
     rows = np.concatenate([np.arange(n), np.arange(n - 300)]).astype(np.int64)
     cols = np.concatenate([np.arange(n), np.arange(300, n)]).astype(np.int64)
@@ -57,7 +45,6 @@ def test_dia_pallas_large_offsets():
     np.testing.assert_allclose(_dia_spmv(csr, x), csr.to_dense() @ x, rtol=1e-12)
 
 
-@_f64_kernels
 def test_dia_operator_through_registry():
     st = generate.make_stencil5(17)
     csr = formats.stencil5_to_csr(st)
@@ -74,12 +61,8 @@ def test_dia_operator_through_registry():
     np.testing.assert_allclose(float(dot), float(x @ (csr.to_dense() @ x)), rtol=1e-12)
 
 
-@_f64_kernels
-def test_dia_xla_matches_pallas():
+def test_dia_and_dia_xla_agree():
     csr = fixtures.banded(200, 3)
     x = np.random.RandomState(4).randn(200)
-    op1 = ops.get_operator("dia", csr, dtype=jnp.float64)
-    op2 = ops.get_operator("dia-xla", csr, dtype=jnp.float64)
-    y1, _ = op1.run_timed(x)
-    y2, _ = op2.run_timed(x)
-    np.testing.assert_allclose(y1, y2, rtol=1e-13)
+    np.testing.assert_allclose(_dia_spmv(csr, x, "dia"), _dia_spmv(csr, x, "dia-xla"),
+                               rtol=1e-13)

@@ -1,10 +1,11 @@
-"""Pallas generic gather SpMV kernel (kernels/gather_ell.py): pack + kernel correctness
-against dense oracles, fallback behavior, and CG integration.
+"""Generic gather SpMV (the ``csr`` / ``cusparse-csr`` modes: padded ELL + an XLA gather):
+correctness against dense oracles and CG integration.
 
-The kernel's claim is GENERALITY (the cuSPARSE-CSR baseline role, reference
-spmv_cusparse_csr.cu:182-285): these tests feed it matrices the stencil kernels cannot
+The operator's claim is GENERALITY (the cuSPARSE-CSR baseline role, reference
+spmv_cusparse_csr.cu:182-285): these tests feed it matrices the stencil operators cannot
 represent — random values in random banded positions, variable row lengths, width-1
-diagonals — and require exact agreement with the dense product."""
+diagonals, columns scattered across the whole matrix — and require exact agreement with the
+dense product."""
 
 import numpy as np
 import pytest
@@ -12,18 +13,10 @@ import pytest
 import jax.numpy as jnp
 
 from tpusparse import formats, generate, ops
-from tpusparse.kernels import gather_ell
-
-# f64 operands run the kernel in interpret mode — CPU-backend only (Mosaic has no f64).
-# The f32 tests below are the on-TPU coverage (TPUSPARSE_TEST_TPU=1).
-_f64_kernels = pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 Pallas kernels are CPU/interpret-only (Mosaic has no f64)",
-)
 
 
 def _random_banded_csr(n, bandwidth, max_row_nnz, seed):
-    """Random matrix with nonzeros scattered inside a band (generic but windowable)."""
+    """Random matrix with nonzeros scattered inside a band."""
     rng = np.random.RandomState(seed)
     rows, cols, vals = [], [], []
     for r in range(n):
@@ -41,19 +34,18 @@ def _random_banded_csr(n, bandwidth, max_row_nnz, seed):
     return formats.coo_to_csr(coo)
 
 
+def _apply(op, x):
+    return np.asarray(op.from_field(op.run_device(op.as_field(x).astype(jnp.float64))))
+
+
 @pytest.mark.parametrize("n,bw,w", [(500, 9, 4), (1500, 300, 7), (2100, 64, 3)])
-@_f64_kernels
 def test_gather_matches_dense_random_banded(n, bw, w):
     csr = _random_banded_csr(n, bw, w, seed=n)
-    dense = csr.to_dense()
     op = ops.get_operator("csr", csr, dtype=jnp.float64)
-    assert "loc" in (op._buffers or {}), "expected the Pallas gather pack, not a fallback"
     x = np.random.RandomState(1).randn(n)
-    y = np.asarray(op.from_field(op.run_device(op.as_field(x).astype(jnp.float64))))
-    np.testing.assert_allclose(y, dense @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(_apply(op, x), csr.to_dense() @ x, rtol=1e-12, atol=1e-12)
 
 
-@_f64_kernels
 def test_gather_width_one_diagonal():
     n = 700
     d = np.linspace(1.0, 2.0, n)
@@ -62,46 +54,33 @@ def test_gather_width_one_diagonal():
                             col=np.arange(n, dtype=np.int64), val=d)
     op = ops.get_operator("csr", formats.coo_to_csr(coo), dtype=jnp.float64)
     x = np.random.RandomState(2).randn(n)
-    y = np.asarray(op.from_field(op.run_device(op.as_field(x).astype(jnp.float64))))
-    np.testing.assert_allclose(y, d * x, rtol=1e-13)
+    np.testing.assert_allclose(_apply(op, x), d * x, rtol=1e-13)
 
 
-@_f64_kernels
-def test_gather_pack_rejects_scattered_columns_and_ops_falls_back(capsys):
-    """Columns scattered across the whole matrix defeat windowing: the pack must raise
-    GatherPackError, and ops.get_operator('csr') must fall back to the XLA gather path
-    LOUDLY while staying correct."""
+def test_gather_scattered_columns():
+    """Columns scattered uniformly across the whole matrix: a plain gather has no
+    locality requirement."""
     n = 3000
     rng = np.random.RandomState(7)
-    # each row hits 3 uniformly random columns — no window survives
     rows = np.repeat(np.arange(n, dtype=np.int64), 3)
     cols = rng.randint(0, n, size=3 * n).astype(np.int64)
     vals = rng.randn(3 * n)
-    coo = formats.COOMatrix(num_rows=n, num_cols=n, row=rows, col=cols, val=vals)
-    csr = formats.coo_to_csr(coo)
-    ell = formats.csr_to_ell(csr)
-    with pytest.raises(gather_ell.GatherPackError):
-        gather_ell.pack_gather_ell(ell.col, ell.val, n, jnp.float64, span_limit=4)
-
-    op = ops.get_operator("csr", csr, dtype=jnp.float64)  # default limits may also trip
-    dense = csr.to_dense()
+    csr = formats.coo_to_csr(formats.COOMatrix(num_rows=n, num_cols=n, row=rows, col=cols,
+                                               val=vals))
+    op = ops.get_operator("csr", csr, dtype=jnp.float64)
     x = np.random.RandomState(8).randn(n)
-    y = np.asarray(op.from_field(op.run_device(op.as_field(x).astype(jnp.float64))))
-    np.testing.assert_allclose(y, dense @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(_apply(op, x), csr.to_dense() @ x, rtol=1e-12, atol=1e-12)
 
 
-@_f64_kernels
 def test_gather_stencil_cross_validates_all_grids():
     for g in (8, 33, 81):
         st = generate.make_stencil5(g)
         dense = formats.stencil5_to_csr(st).to_dense()
         op = ops.get_operator("csr", st, dtype=jnp.float64)
         x = np.random.RandomState(g).randn(g * g)
-        y = np.asarray(op.from_field(op.run_device(op.as_field(x).astype(jnp.float64))))
-        np.testing.assert_allclose(y, dense @ x, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(_apply(op, x), dense @ x, rtol=1e-12, atol=1e-12)
 
 
-@_f64_kernels
 def test_gather_cg_solve_iteration_parity():
     """The gather operator inside CG matches the numpy reference algorithm exactly
     (f64) — the operator-seam property the registry promises."""
@@ -119,28 +98,26 @@ def test_gather_cg_solve_iteration_parity():
     np.testing.assert_allclose(np.asarray(op.from_field(x)), x_ref, rtol=1e-8, atol=1e-10)
 
 
-@_f64_kernels
 def test_gather_rectangular_padding_rows_stay_zero():
-    """Rows past num_rows (block padding) must output exactly zero."""
-    n = 300  # far from the 32768-row block size
+    """Field slots past num_rows (the padded tail of a 300-row vector in a (3, 128) field)
+    must output exactly zero."""
+    n = 300
     csr = _random_banded_csr(n, 5, 3, seed=3)
     op = ops.get_operator("csr", csr, dtype=jnp.float64)
+    assert op.field_elems > n
     x = np.random.RandomState(4).randn(n)
     yf = np.asarray(op.run_device(op.as_field(x).astype(jnp.float64))).ravel()
     assert np.all(yf[n:] == 0.0)
 
 
 def test_gather_matches_dense_random_banded_f32():
-    """The f32 path — the one that compiles on real TPU (Mosaic); also the
-    TPUSPARSE_TEST_TPU=1 coverage for the gather kernel."""
     n = 800
     csr = _random_banded_csr(n, 40, 5, seed=4)
-    dense = csr.to_dense()
     op = ops.get_operator("csr", csr, dtype=jnp.float32)
-    assert "loc" in (op._buffers or {})
     x = np.random.RandomState(5).randn(n).astype(np.float32)
     y = np.asarray(op.from_field(op.run_device(op.as_field(x))), np.float64)
-    np.testing.assert_allclose(y, dense @ x.astype(np.float64), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y, csr.to_dense() @ x.astype(np.float64), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_gather_stencil_f32_vs_xla_oracle():
@@ -154,172 +131,15 @@ def test_gather_stencil_f32_vs_xla_oracle():
     np.testing.assert_allclose(y, yr, rtol=1e-5, atol=1e-5)
 
 
-class TestAffineVariant:
-    """Round-4 affine windowed variant (gather_ell.pack_gather_ell_affine): short residual
-    ladder for slope-1 banded matrices; auto-selected by ops._init_gather_ell."""
-
-    @_f64_kernels
-    def test_affine_matches_dense_stencil(self):
-        g = 81
-        st = formats.Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0))
-        ell = formats.stencil5_to_ell(st)
-        # toy grids route the block-0 back-reach to overflow: relax the cap so the
-        # affine kernel (and its overflow scatter path) is what actually runs
-        op = gather_ell.pack_gather_ell_affine(ell.col, ell.val, ell.num_cols,
-                                               jnp.float64, max_overflow_frac=0.5)
-        assert op.span <= gather_ell.AFFINE_DSPAN_MAX
-        assert op.orow.shape[0] > 0, "toy grid should exercise the overflow path"
-        x = np.random.RandomState(0).randn(g * g)
-        x128 = jnp.asarray(np.concatenate(
-            [x, np.zeros(op.x_rows * 128 - g * g)]).reshape(op.x_rows, 128))
-        y = gather_ell.spmv_gather_affine(op, x128)
-        ref = formats.stencil5_to_csr(st).to_dense() @ x
-        np.testing.assert_allclose(np.asarray(y).reshape(-1)[: g * g], ref,
-                                   rtol=1e-12, atol=1e-12)
-
-    @_f64_kernels
-    def test_affine_matches_ladder_random_banded(self):
-        csr = _random_banded_csr(2100, 64, 3, seed=7)
-        ell = formats.csr_to_ell(csr)
-        aff = gather_ell.pack_gather_ell_affine(ell.col, ell.val, ell.num_cols,
-                                                jnp.float64, max_overflow_frac=0.6)
-        lad = gather_ell.pack_gather_ell(ell.col, ell.val, ell.num_cols, jnp.float64)
-        x = np.random.RandomState(1).randn(csr.num_rows)
-
-        def run(op, fn):
-            x128 = jnp.asarray(np.concatenate(
-                [x, np.zeros(op.x_rows * 128 - csr.num_rows)]).reshape(op.x_rows, 128))
-            return np.asarray(fn(op, x128)).reshape(-1)[: csr.num_rows]
-
-        ya = run(aff, gather_ell.spmv_gather_affine)
-        yl = run(lad, gather_ell.spmv_gather_ell)
-        np.testing.assert_allclose(ya, yl, rtol=1e-12, atol=1e-12)
-
-    @_f64_kernels
-    def test_auto_selection_declines_on_small_back_reaching(self):
-        """Toy grids (one block) have O(block) back-reach overflow: auto must decline
-        affine and still produce the ladder pack, bit-equal results."""
-        st = formats.Stencil5(grid_size=64, planes=None, constant=(5.0, -1.0))
-        from tpusparse.ops import _init_gather_ell
-
-        op = _init_gather_ell(st, dtype=jnp.float64, variant="auto")
-        assert op._buffers["gather_variant"] == "ladder"
-        x = np.random.RandomState(2).randn(64 * 64)
-        y = np.asarray(op.from_field(op.run_device(op.as_field(x))))
-        ref = formats.stencil5_to_csr(st).to_dense() @ x
-        np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12)
-
-    def test_affine_rejects_scattered(self):
-        """Random scattered columns are not affine-windowable: loud error, not silence."""
-        rng = np.random.RandomState(0)
-        n = 4096
-        col = rng.randint(0, n, size=(n, 3)).astype(np.int64)
-        val = rng.randn(n, 3)
-        with pytest.raises(gather_ell.GatherPackError):
-            gather_ell.pack_gather_ell_affine(np.sort(col, axis=1), val, n, jnp.float32)
-
-    @_f64_kernels
-    def test_rot_slots_all_diagonals(self):
-        """Slots that are EXACT diagonals take the rotation path (static lane roll +
-        slice, no per-entry index traffic): rot detected for every slot, the packed loc
-        is the dummy block, and the result is exact.  Offsets exercise cm=0 (pure
-        slice), cm=127 (the wrap-heavy roll), and cm=2 with c>>7=1 (window row step)."""
-        n = 70000  # > 2 blocks
-        offs = [0, 127, 130]
-        rng = np.random.RandomState(11)
-        col = np.zeros((n, len(offs)), np.int64)
-        val = np.zeros((n, len(offs)))
-        for k, c in enumerate(offs):
-            r = np.arange(n)
-            ok = r + c < n
-            col[:, k] = np.where(ok, r + c, 0)
-            val[:, k] = np.where(ok, rng.randn(n), 0.0)  # out-of-range → inert
-        op = gather_ell.pack_gather_ell_affine(col, val, n, jnp.float64)
-        assert op.rot == (0, 127, 130), op.rot
-        assert op.loc.shape == (1, 1, 1, 8, 128), "all-rot pack must drop loc traffic"
-        x = np.random.RandomState(12).randn(n)
-        x128 = jnp.asarray(np.concatenate(
-            [x, np.zeros(op.x_rows * 128 - n)]).reshape(op.x_rows, 128))
-        y = np.asarray(gather_ell.spmv_gather_affine(op, x128)).reshape(-1)[:n]
-        ref = np.zeros(n)
-        for k, c in enumerate(offs):
-            np.add.at(ref, np.arange(n), val[:, k] * x[col[:, k]])
-        np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12)
-
-    @_f64_kernels
-    def test_rot_detected_on_canonical_stencil_even_grid(self):
-        """REGRESSION (round 5): the rot probe must survive even grids.  The round-4
-        detector probed the single median real row — for even g that row is n/2 =
-        g·(g/2), a LEFT-EDGE (j = 0) row where the sorted-ELL slot assignment shifts,
-        so three of the stencil's five slots read a bogus diagonal, 99.9% of entries
-        "mismatched", and the affine pack silently declined to the ladder at EVERY
-        benchmark size (found on hardware at 20480², where the ladder operand then
-        cannot fit HBM).  The modal-sample probe detects all five diagonals; small
-        ``block_subtiles`` keeps the block-0 clip penalty negligible so even the
-        negative diagonals stay rot at this test size."""
-        from tpusparse import formats
-
-        g = 1280
-        ell = formats.stencil5_to_ell(
-            formats.Stencil5(grid_size=g, planes=None, constant=(5.0, -1.0)))
-        op = gather_ell.pack_gather_ell_affine(
-            ell.col, ell.val, ell.num_cols, jnp.float64, block_subtiles=4)
-        assert op.rot == (-g, -1, 0, 1, g), op.rot
-        assert op.loc.shape == (1, 1, 1, 8, 128), "all-rot pack must drop loc traffic"
-        # correctness of the all-rot program against the analytical checksum
-        from tpusparse import generate
-
-        n = g * g
-        x128 = jnp.ones((op.x_rows, 128), jnp.float64)
-        y = np.asarray(gather_ell.spmv_gather_affine(op, x128)).reshape(-1)[:n]
-        sum_ref, _ = generate.stencil5_spmv_checksums(g)
-        np.testing.assert_allclose(y.sum(), sum_ref, rtol=1e-12)
-
-    @_f64_kernels
-    def test_rot_mixed_with_ladder_slot(self):
-        """A diagonal slot and a random-banded slot coexist: rot for one, ladder for the
-        other, loc carries only the ladder slot, result exact."""
-        n = 70000
-        rng = np.random.RandomState(13)
-        col = np.zeros((n, 2), np.int64)
-        val = rng.randn(n, 2)
-        col[:, 0] = np.arange(n)                                   # exact diagonal
-        col[:, 1] = np.minimum(np.arange(n) + rng.randint(0, 5, n), n - 1)  # banded
-        op = gather_ell.pack_gather_ell_affine(col, val, n, jnp.float64)
-        assert op.rot[0] == 0 and op.rot[1] is None, op.rot
-        assert op.loc.shape[1] == 1, "loc must carry the ladder slot only"
-        x = np.random.RandomState(14).randn(n)
-        x128 = jnp.asarray(np.concatenate(
-            [x, np.zeros(op.x_rows * 128 - n)]).reshape(op.x_rows, 128))
-        y = np.asarray(gather_ell.spmv_gather_affine(op, x128)).reshape(-1)[:n]
-        ref = val[:, 0] * x[col[:, 0]] + val[:, 1] * x[col[:, 1]]
-        np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12)
-
-    @_f64_kernels
-    def test_affine_large_multiblock_auto_selected(self):
-        """A ≥2-block slope-1 banded matrix is the affine target class: auto must pick
-        affine (block-0 back-reach is a negligible overflow fraction there)."""
-        n = 70000  # > 2 blocks of 32768 rows
-        rng = np.random.RandomState(4)
-        off = np.array([-2, 0, 1])
-        cols = np.clip(np.arange(n).reshape(n, 1) + off, 0, n - 1)
-        vals = rng.randn(n, 3)
-        coo = formats.COOMatrix(num_rows=n, num_cols=n,
-                                row=np.repeat(np.arange(n, dtype=np.int64), 3),
-                                col=cols.reshape(-1).astype(np.int64),
-                                val=vals.reshape(-1))
-        csr = formats.coo_to_csr(coo)
-        from tpusparse.ops import _init_gather_ell
-
-        op = _init_gather_ell(csr, dtype=jnp.float64, variant="auto")
-        # the 0/+1 slots are exact diagonals → rot; the −2 slot's block-0 clip cost
-        # (47% of its entries) demotes it to the ladder path
-        assert op._buffers["gather_variant"] == "affine+rot2"
-        assert op._buffers["span"] <= 4
-        x = rng.randn(n)
-        y = np.asarray(op.from_field(op.run_device(op.as_field(x))))
-        # tridiagonal-ish oracle without densifying 70000²
-        ref = np.zeros(n)
-        np.add.at(ref, np.repeat(np.arange(n), 3),
-                  vals.reshape(-1) * x[cols.reshape(-1)])
-        np.testing.assert_allclose(y, ref, rtol=1e-10, atol=1e-10)
+@pytest.mark.parametrize("mode", ["csr", "cusparse-csr", "csr-xla", "ell"])
+def test_csr_names_share_the_gather_operator(mode):
+    """Every generic-CSR name in the registry is the same ELL gather operator, fused dot
+    included."""
+    csr = _random_banded_csr(257, 12, 4, seed=9)
+    op = ops.get_operator(mode, csr, dtype=jnp.float64)
+    assert op.name == mode and set(op._buffers) >= {"col", "val"}
+    x = np.random.RandomState(10).randn(257)
+    y, dot = op.run_device_dot(op.as_field(x).astype(jnp.float64))
+    y_ref = csr.to_dense() @ x
+    np.testing.assert_allclose(np.asarray(op.from_field(y)), y_ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(float(dot), float(x @ y_ref), rtol=1e-12)

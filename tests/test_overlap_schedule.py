@@ -7,9 +7,9 @@ cg_solver_mgpu_partitioned.cu:692-711).
 
 What can be verified where:
 
-- On TPU, XLA's collective pipeliner + latency-hiding scheduler rewrite a synchronous
+- On the GPU, XLA's collective pipeliner + latency-hiding scheduler rewrite a synchronous
   ``collective-permute`` into a ``collective-permute-start`` / ``-done`` pair and hoist
-  independent compute between them.  That rewrite is a TPU/GPU backend pass; the CPU
+  independent compute between them.  That rewrite is a GPU backend pass; the CPU
   backend runs collectives inline — compiled CPU HLO contains only the synchronous form
   (verified: no ``-start``/``-done`` anywhere in the CPU executable).  So "the async pair
   brackets the interior kernel" is NOT observable on a CPU mesh.
@@ -22,9 +22,9 @@ What can be verified where:
   negative control (there the full-band SpMV consumes the halos, so the bulk compute IS
   reachable).
 
-The TPU-side scheduling evidence (async pair around the interior fusion in the compiled
-TPU executable) is covered in docs/PERFORMANCE.md's overlap section; a single-chip
-deployment cannot compile a multi-device collective program natively.
+Whether the GPU executable brackets the interior fusion with an async
+collective-permute-start/-done pair is read from the compiled 4-card HLO by
+``chip_smoke.py --four`` (PERF.md records the finding).
 """
 
 import re
@@ -104,7 +104,7 @@ def mesh8():
 class TestOverlapDependenceStructure:
     def test_cpu_backend_has_no_async_pair(self, mesh8):
         """Baseline fact the module docstring relies on: the CPU executable keeps the
-        synchronous collective-permute (the async -start/-done rewrite is a TPU/GPU
+        synchronous collective-permute (the async -start/-done rewrite is a GPU
         backend pass).  If this ever changes, the stronger schedule assertion becomes
         available on CPU and this test should be upgraded."""
         hlo = _compiled_hlo(True, mesh8)

@@ -27,12 +27,6 @@ pytestmark = pytest.mark.skipif(
     not os.path.exists(REF_MTX), reason="reference checkout not available"
 )
 
-# strict 1e-12 cross-validation requires f64 operators — CPU/interpret only
-_f64_only = pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 operators are CPU/interpret-only (Mosaic has no f64)",
-)
-
 
 @pytest.fixture(scope="module")
 def sample():
@@ -41,7 +35,6 @@ def sample():
     return coo, csr
 
 
-@_f64_only
 def test_sample_matrix_shape_and_header(sample):
     coo, csr = sample
     assert coo.num_rows == coo.num_cols == 6561
@@ -53,7 +46,6 @@ def test_sample_matrix_shape_and_header(sample):
     assert dense[0, 1] == -1.0
 
 
-@_f64_only
 def test_sample_matrix_operator_cross_validation(sample):
     """csr / dia / stencil5 / bcoo all agree with the dense oracle on the reference's own
     data, for every input pattern, at the strict tier (1e-12) in f64."""
@@ -70,7 +62,6 @@ def test_sample_matrix_operator_cross_validation(sample):
             assert res.passed, f"{mode}/{pattern}: {res}"
 
 
-@_f64_only
 def test_sample_matrix_spmv_ones_checksum(sample):
     """Analytical checksum for y = A·ones: sum(y) = sum of all matrix entries.
 
@@ -84,11 +75,7 @@ def test_sample_matrix_spmv_ones_checksum(sample):
 
 
 def test_sample_matrix_cross_validation_f32():
-    """f32 variant at the relaxed tier — runs on TPU hardware too (the f64 tests above are
-    CPU-only).  Uses its own skip logic instead of the module's f64 marker."""
-    import jax
-
-    del jax  # backend-agnostic: compiled f32 kernels on TPU, interpret on CPU
+    """f32 variant at the relaxed tier."""
     coo = io_mtx.load_matrix_market(REF_MTX)
     csr = formats.coo_to_csr(coo)
     dense = csr.to_dense()

@@ -14,15 +14,6 @@ import pytest
 
 from tpusparse.solvers import cg, cg_sharded
 
-import pytest as _pytest  # noqa: E402
-
-# These suites solve in f64 over 4-8-device meshes: the virtual multi-device
-# CPU mesh + interpret-mode f64 Pallas.  On a real accelerator backend they
-# have neither the devices nor f64 kernels - skip, like the other f64 suites.
-pytestmark = _pytest.mark.skipif(
-    __import__("jax").default_backend() != "cpu",
-    reason="f64 multi-device mesh tests are CPU/interpret-only",
-)
 
 
 REF_MTX = "/root/reference/matrix/example81x81.mtx"
@@ -62,7 +53,7 @@ class TestShardedFileOperands:
                                    np.asarray(x1, np.float64).sum(), rtol=1e-10)
 
     def test_generated_mtx_through_multichip_cli(self, tmp_path):
-        """The VERDICT contract: `cg_solver_multichip path.mtx --chips=8` on a generated
+        """The file contract: `cg_solver_multichip path.mtx --chips=8` on a generated
         matrix, CPU mesh, JSON export checked for parity vs the single-chip solve."""
         from tpusparse import generate
         from tpusparse.cli import cg_solver_multichip
@@ -102,7 +93,7 @@ class TestShardedFileOperands:
 
     @pytest.mark.slow
     def test_generated_1k_mtx_sharded_parity(self, tmp_path):
-        """The VERDICT contract at the 1k scale: a generated 1000×1000-grid .mtx (1M
+        """The file contract at the 1k scale: a generated 1000×1000-grid .mtx (1M
         unknowns, ~5M nnz) solved 8-way sharded from the FILE, parity vs 1-device."""
         from tpusparse import formats, generate, io_mtx
 

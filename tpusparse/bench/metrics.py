@@ -5,9 +5,10 @@ Parity with the reference's metrics calculator (src/spmv/spmv_metrics.cu):
   - format-specific byte models                (:76-95 — CSR: 8B val + 4B col + row_ptr + x + y)
   - arithmetic intensity + memory/balanced/compute-bound classification (:147-167)
 
-TPU-native change (SURVEY.md §2.5 "TPU equiv"): absolute GB/s is reported *and* normalized to
-the chip's HBM roofline — the reference's RTX-4060 roofline analysis (docs/PROFILING_ANALYSIS.md:
-88-97, "STENCIL5 at 95% of peak") generalizes across chips only as a fraction of peak.
+Absolute GB/s is reported *and* normalized to the card's memory roofline — the reference's
+RTX-4060 roofline analysis (docs/PROFILING_ANALYSIS.md:88-97, "STENCIL5 at 95% of peak")
+generalizes across cards only as a fraction of peak.  A device kind without a row in the peak
+table gets no roofline fraction: no default is guessed.
 """
 
 from __future__ import annotations
@@ -15,28 +16,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# Per-chip peak specs: (HBM GB/s, peak f32 GFLOPS dense).  Sources: public TPU spec sheets /
-# jax-ml.github.io/scaling-book hardware tables.  "TPU v5 lite" == v5e.
+# Published peaks per device kind (JAX's ``device_kind``): (memory GB/s, f32 GFLOP/s outside
+# the tensor cores).  Source: NVIDIA H100 Tensor Core GPU data sheet — SXM5: 3,350 GB/s HBM3,
+# 67 TFLOP/s FP32; PCIe: 2,000 GB/s HBM2e, 51 TFLOP/s FP32.  Rates assume the full power limit.
 CHIP_SPECS = {
-    "TPU v2": (700.0, 46_000.0),
-    "TPU v3": (900.0, 123_000.0),
-    "TPU v4": (1228.0, 275_000.0),
-    "TPU v5 lite": (819.0, 197_000.0),
-    "TPU v5e": (819.0, 197_000.0),
-    "TPU v5p": (2765.0, 459_000.0),
-    "TPU v6 lite": (1640.0, 918_000.0),
-    "TPU v6e": (1640.0, 918_000.0),
-    "TPU 7x": (7400.0, 2_300_000.0),
-    # CPU fallback for tests: nominal numbers so fractions stay finite
-    "cpu": (50.0, 1_000.0),
+    "NVIDIA H100 80GB HBM3": (3350.0, 67_000.0),
+    "NVIDIA H100 PCIe": (2000.0, 51_000.0),
 }
 
 
 def chip_peaks(device_kind: str):
-    for key, val in CHIP_SPECS.items():
-        if device_kind.lower().startswith(key.lower()):
-            return val
-    return (819.0, 197_000.0)  # conservative default: v5e
+    """(memory GB/s, f32 GFLOP/s) of a device kind.  Raises for a kind not in the table: a
+    roofline share against a guessed peak is worse than none."""
+    try:
+        return CHIP_SPECS[device_kind]
+    except KeyError:
+        raise ValueError(f"no published peaks for device kind {device_kind!r}; "
+                         f"known: {sorted(CHIP_SPECS)}") from None
 
 
 def spmv_flops(nnz: int) -> int:
@@ -69,42 +65,19 @@ def bytes_dia(rows: int, ndiag: int, itemsize: int) -> int:
 
 
 def _bytes_ell_op(op, itemsize):
-    """Actual ELL traffic: every padded slot's value + the index planes the kernel actually
-    stores + x read + y write (covers both the (rows, width) XLA layout and the Pallas
-    kernel's blocked layout).
-
-    Index bytes come from the operand's REAL ``loc`` array, not width·rows·4: the affine
-    pack's rot slots (exact diagonals) carry no per-entry indices at all — at 20480² all
-    five stencil slots are rot, so the index planes (8.4 GB) are absent from both HBM and
-    this model (counting them would inflate the reported bandwidth ~2×).
-
-    The Pallas gather kernel additionally DMAs a slot WINDOW of x per (block, slot) —
-    nb·width·swin·128 elements per apply, often exceeding the single counted x read.  When
-    the operator carries the packed window geometry (swin/nb/width in _buffers), that
-    measured traffic REPLACES the naive one-x-read term so csr-mode bandwidth and roofline
-    fractions are computed from what the kernel actually moves."""
+    """Actual ELL traffic: every padded slot's value and column index + x read + y write."""
     buf = op._buffers or {}
     val = buf.get("val")
     if val is None:
         return bytes_csr(op.nnz, op.num_rows, itemsize)
-    loc = buf.get("loc")
-    if loc is not None:
-        idx_bytes = int(loc.size) * loc.dtype.itemsize  # what the pack actually stored
-    else:
-        col = buf.get("col")
-        idx_bytes = (int(col.size) * col.dtype.itemsize if col is not None
-                     else int(val.size) * 4)
-    nbytes = int(val.size) * itemsize + idx_bytes + op.num_rows * itemsize  # val+idx+y
-    if all(k in buf for k in ("swin", "nb", "width")):
-        nbytes += buf["nb"] * buf["width"] * buf["swin"] * 128 * itemsize
-    else:
-        nbytes += op.num_rows * itemsize  # XLA layout: one x read
-    return nbytes
+    col = buf.get("col")
+    idx_bytes = int(col.size) * col.dtype.itemsize if col is not None else int(val.size) * 4
+    return int(val.size) * itemsize + idx_bytes + 2 * op.num_rows * itemsize
 
 
 def _bytes_dia_op(op, itemsize):
-    """Actual DIA traffic: the full (ndiag, padded-rows) data array the kernel streams —
-    includes stored zeros where diagonals exit the matrix and the lane padding — plus x, y."""
+    """Actual DIA traffic: the full (ndiag, rows) data array the operator streams —
+    includes stored zeros where diagonals exit the matrix — plus x, y."""
     data = (op._buffers or {}).get("data")
     if data is not None:
         return (int(data.size) + 2 * op.field_elems) * itemsize
@@ -113,15 +86,19 @@ def _bytes_dia_op(op, itemsize):
 
 BYTE_MODELS = {
     "csr": lambda op, itemsize: _bytes_ell_op(op, itemsize),
+    "csr-xla": lambda op, itemsize: _bytes_ell_op(op, itemsize),
+    "cusparse-csr": lambda op, itemsize: _bytes_ell_op(op, itemsize),
     "ell": lambda op, itemsize: _bytes_ell_op(op, itemsize),
     "bcoo": lambda op, itemsize: op.nnz * (itemsize + 8) + 2 * op.num_rows * itemsize,
     "dia": _bytes_dia_op,
     "dia-xla": _bytes_dia_op,
     "stencil5": lambda op, itemsize: bytes_stencil5(op.num_rows, itemsize),
     "stencil5-xla": lambda op, itemsize: bytes_stencil5(op.num_rows, itemsize),
+    "stencil5-csr": lambda op, itemsize: bytes_stencil5(op.num_rows, itemsize),
     # bf16 coefficient storage: 5 planes at 2 B + x,y at the state itemsize
     "stencil5-bf16c": lambda op, itemsize: op.num_rows * (5 * 2 + 2 * itemsize),
     "stencil5-const": lambda op, itemsize: bytes_stencil5_const(op.num_rows, itemsize),
+    "stencil5-const-xla": lambda op, itemsize: bytes_stencil5_const(op.num_rows, itemsize),
 }
 
 
@@ -133,8 +110,8 @@ class SpmvMetrics:
     gflops: float
     bandwidth_gbs: float
     arithmetic_intensity: float
-    roofline_fraction: float  # achieved BW / nominal chip HBM peak (spec sheet)
-    bound: str  # "memory-bound" | "balanced" | "compute-bound"
+    roofline_fraction: Optional[float]  # achieved BW / published peak; None: no peak known
+    bound: str  # "memory-bound" | "balanced" | "compute-bound" | "unknown" (no peak known)
     bytes_moved: int
     nnz: int
     rows: int
@@ -144,26 +121,10 @@ class SpmvMetrics:
     # None when no probe was run.
     achievable_gbs: Optional[float] = None
     roofline_fraction_achievable: Optional[float] = None
-    # Timing-validity flags (round-3 review): non-empty means the bandwidth/GFLOPS above
-    # must NOT be read as a roofline claim.  Populated when the per-apply kernel time is
-    # too small for the chained-slope protocol to resolve (< MIN_VALID_KERNEL_MS) or when
-    # the implied bandwidth exceeds the nominal peak / measured ceiling (physically
-    # impossible — residual cross-apply fusion or noise).
+    # Timing-validity flags: non-empty means the bandwidth/GFLOPS above must NOT be read as
+    # a roofline claim — the implied bandwidth exceeds the published peak or the measured
+    # ceiling (a working set held in cache across chained applies, or a timing error).
     timing_flags: tuple = ()
-
-
-# Below this per-apply time the chained-slope protocol is jitter-dominated on tunneled
-# deployments (±ms readback RTT vs sub-ms slope) — flagged, not refused, so small-grid
-# runs still report a number with an explicit caveat attached.
-MIN_VALID_KERNEL_MS = 0.5
-
-# Measured on-chip residency knee (scripts/probe_onchip_knee.py → docs/results/
-# onchip_knee_*.json): dependent copy chains over ≤64 MiB buffers sustain ~5.5 TB/s on
-# v5e — across chained applies the working set never leaves on-chip memory — while
-# ≥128 MiB footprints converge to the ~658 GB/s HBM stream.  Below the knee, dividing
-# an HBM byte model by the chained time yields a real on-chip bandwidth, not an HBM
-# roofline claim; artifacts must say which one they are reporting.
-ON_CHIP_KNEE_BYTES = 128 * 2 ** 20
 
 
 def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int,
@@ -177,43 +138,31 @@ def calculate_spmv_metrics(op, time_ms: float, *, dtype_itemsize: int,
     gflops = flops / t / 1e9 if t > 0 else 0.0
     bw = nbytes / t / 1e9 if t > 0 else 0.0
     ai = flops / nbytes if nbytes else 0.0
-    peak_bw, peak_flops = chip_peaks(device_kind)
+    peaks = CHIP_SPECS.get(device_kind)
     flags = []
-    if 0 < time_ms < MIN_VALID_KERNEL_MS:
+    if peaks is not None and bw > peaks[0]:
         flags.append(
-            f"kernel_time<{MIN_VALID_KERNEL_MS}ms: chained-slope noise-dominated; "
-            "bandwidth/GFLOPS indicative only")
-    on_chip = device_kind != "cpu" and 0 < nbytes < ON_CHIP_KNEE_BYTES
-    if on_chip:
-        flags.append(
-            f"working_set_below_onchip_knee: {nbytes / 2**20:.0f} MiB < "
-            f"{ON_CHIP_KNEE_BYTES // 2**20} MiB — chained applies can run from on-chip "
-            "memory; bandwidth is an on-chip figure, not an HBM roofline claim")
-    if device_kind != "cpu" and bw > peak_bw:
-        if on_chip:
-            flags.append(
-                f"implied_bw_exceeds_hbm_peak: {bw:.0f} > {peak_bw:.0f} GB/s — consistent "
-                "with on-chip residency (measured ~5.5 TB/s copy chains at ≤64 MiB)")
-        else:
-            flags.append(
-                f"implied_bw_exceeds_nominal_peak: {bw:.0f} > {peak_bw:.0f} GB/s — "
-                "physically impossible; timing invalid as a roofline claim")
-    elif achievable_gbs and bw > achievable_gbs and not on_chip:
+            f"implied_bw_exceeds_nominal_peak: {bw:.0f} > {peaks[0]:.0f} GB/s — cache "
+            "residency across chained applies or a timing error; not a roofline claim")
+    elif achievable_gbs and bw > achievable_gbs:
         flags.append(
             f"implied_bw_exceeds_measured_ceiling: {bw:.0f} > {achievable_gbs:.0f} GB/s")
-    ridge = peak_flops / peak_bw  # FLOPs per byte at the roofline ridge point
-    if ai < 0.5 * ridge:
-        bound = "memory-bound"
-    elif ai > 2.0 * ridge:
-        bound = "compute-bound"
+    if peaks is None:
+        bound = "unknown"
     else:
-        bound = "balanced"
+        ridge = peaks[1] / peaks[0]  # FLOPs per byte at the roofline ridge point
+        if ai < 0.5 * ridge:
+            bound = "memory-bound"
+        elif ai > 2.0 * ridge:
+            bound = "compute-bound"
+        else:
+            bound = "balanced"
     return SpmvMetrics(
         time_ms=time_ms,
         gflops=gflops,
         bandwidth_gbs=bw,
         arithmetic_intensity=ai,
-        roofline_fraction=bw / peak_bw if peak_bw else 0.0,
+        roofline_fraction=bw / peaks[0] if peaks is not None else None,
         bound=bound,
         bytes_moved=nbytes,
         nnz=op.nnz,

@@ -1,16 +1,20 @@
 """Device/system provenance for benchmark exports.
 
 Parity with the reference's gpu_detection.cu: cudaGetDeviceProperties + driver/runtime versions
-(:76-108), /proc/cpuinfo CPU model (:9-33), sysconf RAM (:35-39).  The nvidia-smi popen fields
-(temperature, power, PCIe — :41-74) have no TPU analog here; jax/libtpu versions and device
-attributes play the provenance role instead.
+(:76-108), /proc/cpuinfo CPU model (:9-33), sysconf RAM (:35-39), and the nvidia-smi popen fields
+(:41-74): the card's name, power limit and draw, clocks and temperature.  A card below its
+maximum power limit runs slower under load, so every number is recorded beside them.
 """
 
 from __future__ import annotations
 
 import os
 import platform
-from typing import Any, Dict
+import subprocess
+from typing import Any, Dict, List, Optional
+
+NVIDIA_SMI_FIELDS = ("name", "power.limit", "power.draw", "clocks.sm", "clocks.max.sm",
+                     "clocks.mem", "temperature.gpu")
 
 
 def _cpu_model() -> str:
@@ -31,6 +35,29 @@ def _ram_gb() -> float:
         return page * pages / 1e9
     except (ValueError, OSError):
         return 0.0
+
+
+def parse_nvidia_smi(text: str) -> List[Dict[str, str]]:
+    """One dict per card from ``nvidia-smi --query-gpu=<NVIDIA_SMI_FIELDS>
+    --format=csv,noheader`` output (values keep their units, e.g. "700.00 W")."""
+    cards = []
+    for line in text.strip().splitlines():
+        values = [v.strip() for v in line.split(",")]
+        if len(values) == len(NVIDIA_SMI_FIELDS):
+            cards.append(dict(zip(NVIDIA_SMI_FIELDS, values)))
+    return cards
+
+
+def query_nvidia_smi(command: str = "nvidia-smi") -> Optional[List[Dict[str, str]]]:
+    """The cards' state as nvidia-smi reports it, or None where there is no nvidia-smi."""
+    try:
+        out = subprocess.run(
+            [command, f"--query-gpu={','.join(NVIDIA_SMI_FIELDS)}",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return parse_nvidia_smi(out)
 
 
 def get_system_info() -> Dict[str, Any]:
@@ -57,21 +84,14 @@ def get_system_info() -> Dict[str, Any]:
         info["jaxlib_version"] = jaxlib.__version__
     except Exception:
         pass
-    try:
-        import libtpu
+    if dev.platform == "gpu":
+        info["nvidia_smi"] = query_nvidia_smi()
+    stats = dev.memory_stats()
+    if stats:
+        info["device_bytes_limit"] = stats.get("bytes_limit")
+    from .metrics import CHIP_SPECS
 
-        info["libtpu_version"] = getattr(libtpu, "__version__", "present")
-    except Exception:
-        info["libtpu_version"] = None
-    try:
-        stats = dev.memory_stats()
-        if stats:
-            info["hbm_bytes_limit"] = stats.get("bytes_limit")
-    except Exception:
-        pass
-    from .metrics import chip_peaks
-
-    peak_bw, peak_flops = chip_peaks(info["device_kind"])
+    peak_bw, peak_flops = CHIP_SPECS.get(info["device_kind"], (None, None))
     info["peak_hbm_gbs"] = peak_bw
     info["peak_f32_gflops"] = peak_flops
     return info

@@ -37,11 +37,10 @@ def build_parser():
                         "correctness/fallback path, cg_solver.cu:172-181)")
     p.add_argument("--device", action="store_true",
                    help="device-native fused loop (the default; reference --device)")
-    p.add_argument("--loop", default="auto", choices=["auto", "classic", "recompute"],
-                   help="iteration structure: 'recompute' = the 8-words/pt recompute-Ap "
-                        "two-pass loop (operators that provide it; stencil5-const), "
-                        "'classic' = the 3-pass loop, 'auto' = recompute when available "
-                        "(measured faster).  The artifact records which one ran.")
+    p.add_argument("--loop", default="classic", choices=["classic", "recompute"],
+                   help="iteration structure: 'classic' = the 3-pass loop, 'recompute' = "
+                        "the two-pass recompute-Ap loop (operators that provide it; "
+                        "stencil5-const).  The artifact records which one ran.")
     p.add_argument("--json", default=None)
     p.add_argument("--csv", default=None)
     p.add_argument("--runs", type=int, default=10)
@@ -63,7 +62,6 @@ def main(argv=None) -> int:
     from ..dist import enable_compilation_cache
 
     enable_compilation_cache()
-    import jax.numpy as jnp
 
     from .. import ops
     from ..bench import export, metrics, stats, sysinfo
@@ -76,8 +74,7 @@ def main(argv=None) -> int:
     print(f"[INFO] device: {info['device_kind']} x{info['num_devices']} "
           f"(backend={info['backend']})")
 
-    run_dtype = dtype or (jnp.float64 if info["backend"] == "cpu" and info["x64_enabled"]
-                          else jnp.float32)
+    run_dtype = dtype or ops._default_dtype()
     # b = ones can be synthesized in-graph ONLY when the operator's field has no padded
     # tail (ones_b zero-pads it; in-graph ones would put 1.0 in decoupled padded rows and
     # the residual there would never decay — e.g. the lane-padded dia operator).
@@ -87,24 +84,23 @@ def main(argv=None) -> int:
         b = op.ones_b(run_dtype)
     else:
         # device path with in-graph b synthesis: the solve only consumes shape/dtype, so
-        # never keep a real ones field resident (1.7 GB of HBM at 20480² f32)
+        # never keep a real ones field resident (3.2 GB at 20000² f64)
         import jax
 
         b = jax.ShapeDtypeStruct(op.field_shape, run_dtype)
     config = cg.CGConfig(max_iters=args.maxiter, tolerance=args.tol,
                          verbose=args.verbose, enable_detailed_timers=args.timers)
 
-    recompute_ap = {"auto": None, "classic": False, "recompute": True}[args.loop]
-    # which loop actually executes (mirrors cg_solve's auto selection) — exported below
+    recompute_ap = args.loop == "recompute"
     recomp_avail = (op.run_pupdate_dot_op is not None
                     and op.run_update_recompute_op is not None)
-    if recompute_ap is True and not recomp_avail:
+    if recompute_ap and not recomp_avail:
         print(f"[ERROR] --loop=recompute: mode '{args.mode}' provides no recompute "
               "passes (stencil5-const does)", file=sys.stderr)
         return 2
     if host_path:
         loop_kind = "host-stepped"
-    elif recompute_ap is not False and recomp_avail:
+    elif recompute_ap:
         loop_kind = "recompute-ap"
     else:
         loop_kind = "fused-classic"
@@ -121,8 +117,7 @@ def main(argv=None) -> int:
         ms = (time.perf_counter() - t0) * 1e3
         if not keep_x:
             # benchmark_solver_with_stats keeps every run's payload until the median is
-            # known — a device x in each payload accumulates runs × 1.68 GB at 20480²
-            # and ResourceExhausts the 16 GB chip at --runs=10 (measured, round 5).
+            # known — a device x in each payload would accumulate runs × field bytes.
             # The solve is deterministic: checksums come from ONE extra solve after the
             # stats, not from the timed runs.
             del x

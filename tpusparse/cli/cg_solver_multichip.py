@@ -6,8 +6,8 @@ Role parity with the reference's ``cg_solver_mgpu_stencil`` (src/main/cg_solver_
         [--tol=1e-6] [--maxiter=1000] [--json=<f>] [--csv=<f>] [--runs=10] [--warmup=3]
         [--multihost]
 
-Differences by design (SURVEY.md §2.4): no mpirun — ONE process drives all local chips through
-a ``jax.sharding.Mesh`` (multi-host pods use --multihost → ``jax.distributed.initialize()``,
+Differences by design (SURVEY.md §2.4): no mpirun — ONE process drives all local cards through
+a ``jax.sharding.Mesh`` (several hosts use --multihost → ``jax.distributed.initialize()``,
 one process per host).  The reference's per-rank .mtx load / MPI_Bcast dance (:50-60) has no
 analog: the operand is synthesized directly into its sharded layout.
 
@@ -37,9 +37,8 @@ def build_parser():
                    help="SpMV inside the sharded solve.  NOTE: sharded 'csr' is the "
                         "generic band-local XLA-gather COMPARISON kernel (the role of the "
                         "reference's in-solver csr_spmv_kernel, "
-                        "cg_solver_mgpu_partitioned.cu:40-56) — NOT the single-chip hand "
-                        "Pallas gather kernel; do not read its timings as that kernel "
-                        "sharded")
+                        "cg_solver_mgpu_partitioned.cu:40-56), which needs every column "
+                        "within one grid row of its row")
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--maxiter", type=int, default=1000)
     p.add_argument("--json", default=None)
@@ -70,7 +69,6 @@ def main(argv=None) -> int:
 
         initialize_multihost()
     import jax
-    import jax.numpy as jnp
 
     from ..bench import export, metrics, stats, sysinfo
     from ..dist import make_band_mesh
@@ -149,9 +147,9 @@ def main(argv=None) -> int:
 
     from .spmv_bench import _resolve_dtype
 
-    dtype = _resolve_dtype(args.dtype) or (
-        jnp.float64 if info["backend"] == "cpu" and info["x64_enabled"] else jnp.float32
-    )
+    from ..ops import _default_dtype
+
+    dtype = _resolve_dtype(args.dtype) or _default_dtype()
 
     diag, offdiag = const_coeffs if const_coeffs is not None else (5.0, -1.0)
     op = None
@@ -274,9 +272,8 @@ def main(argv=None) -> int:
                       **({"allgather_ms": allgather_ms}
                          if allgather_ms is not None else {}),
                       # self-describing artifact: the sharded csr mode is the band-local
-                      # XLA-gather comparison kernel, not the Pallas gather kernel sharded
-                      **({"spmv_kernel": "band-local XLA gather (comparison kernel; "
-                          "not the single-chip Pallas gather)"}
+                      # XLA-gather comparison kernel
+                      **({"spmv_kernel": "band-local XLA gather (comparison kernel)"}
                          if op.mode == "csr" else {}),
                       # measured cross-process MAX/MIN + imbalance (reference
                       # CGStatsMultiGPU :749-800); absent in single-process runs

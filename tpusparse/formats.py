@@ -1,20 +1,19 @@
-"""Sparse matrix containers for the TPU-native SpMV/CG framework.
+"""Sparse matrix containers for the SpMV/CG framework.
 
 Role parity with the reference (see SURVEY.md §2.1):
   - ``COOMatrix``      ≙ ``MatrixData``  (reference include/io.h:53-59)
   - ``CSRMatrix``      ≙ ``CSRMatrix``   (reference include/spmv_csr.h:28-35,
                          built by ``build_csr_struct`` src/spmv/spmv_cusparse_csr.cu:62-170)
   - ``ELLMatrix``      ≙ ``ELLPACKMatrix`` (reference include/spmv_ellpack.h:28-36 — vestigial
-                         there, first-class here because padded-row formats map well to TPU)
-  - ``DIAMatrix``      — TPU-native addition: diagonal-offset storage.  On TPU, gathers by
-                         arbitrary ``col_idx`` are hostile to vector memory, while "shift x by a
-                         constant offset and FMA" is exactly what the VPU does well.  Any matrix
-                         whose nonzeros live on few distinct diagonals (all the reference's
-                         fixtures, and every stencil) gets a gather-free kernel through DIA.
+                         there, first-class here: the generic gather operator runs on it)
+  - ``DIAMatrix``      — addition: diagonal-offset storage.  "Shift x by a constant offset and
+                         FMA" needs no index traffic, so any matrix whose nonzeros live on few
+                         distinct diagonals (all the reference's fixtures, and every stencil)
+                         gets a gather-free operator through DIA.
   - ``Stencil5``       — the structure-exploiting showcase format (reference
                          src/spmv/spmv_stencil_csr_direct.cu): for a g×g 5-point stencil grid the
                          column indices are pure arithmetic (row±1, row±g), so only *values* are
-                         stored.  TPU-natively the natural layout is five (g, g) coefficient
+                         stored.  The natural array layout is five (g, g) coefficient
                          planes [N, W, C, E, S] over the 2-D grid, and the vector x is viewed as a
                          (g, g) field: SpMV becomes five shifted elementwise FMAs — no index
                          traffic at all (the same 48 B/row byte model as the reference's kernel,
@@ -104,8 +103,8 @@ class ELLMatrix:
     """ELLPACK: rows padded to uniform width (reference include/spmv_ellpack.h:28-36).
 
     Padding entries carry ``col = padded row's own index`` (any in-range index) and ``val = 0`` so
-    a gather-based SpMV needs no masking.  TPU-natively this is the generic-matrix fallback: the
-    gather ``x[col]`` is done by XLA (or a Pallas gather kernel where supported).
+    a gather-based SpMV needs no masking.  This is the generic-matrix operator: the gather
+    ``x[col]`` is done by XLA.
     """
 
     num_rows: int
@@ -126,8 +125,8 @@ class DIAMatrix:
 
     ``data[d, i]`` is the value the *row* i contributes via diagonal d (zero where the diagonal
     exits the matrix).  SpMV is ``y[i] = Σ_d data[d, i] · x[i + off_d]`` — a shift + FMA per
-    diagonal, the gather-free generic formulation that plays the cuSPARSE-CSR baseline role on
-    TPU for any matrix with few distinct diagonals.
+    diagonal, the gather-free generic formulation for any matrix with few distinct
+    diagonals.
     """
 
     num_rows: int
@@ -240,11 +239,9 @@ def csr_to_ell(csr: CSRMatrix, width: Optional[int] = None) -> ELLMatrix:
         col[rows, pos] = csr.col_idx
         val[rows, pos] = csr.val
         # Pad slots repeat the row's LAST REAL column (val stays 0) instead of col=row:
-        # a short row's padded slot then shares its neighbors' diagonal, so windowing
-        # packers (kernels/gather_ell.py) don't get their per-subtile anchor dragged to
-        # the row index — measured at g=4096: col=row padding put 10% of entries ~g away
-        # from their window and forced the gather ladder from span 9 to span 40.
-        # (Empty rows keep col=row — any in-range index is valid with val=0.)
+        # a short row's padded slot then reads an x entry its neighbours read too, so the
+        # gather keeps its locality.  (Empty rows keep col=row — any in-range index is
+        # valid with val=0.)
         if w > 1:
             nz = row_lens > 0
             last = np.where(

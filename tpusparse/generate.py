@@ -5,8 +5,8 @@ src/matrix/generate_matrix.cu): a g×g grid produces an SPD matrix with diagonal
 (Laplacian + mass term, io.cu:375) and up to four -1.0 neighbors, written 1-based in Matrix
 Market "coordinate real general" format with a ``% STENCIL_GRID_SIZE g`` comment.
 
-TPU-first addition (SURVEY.md §2.1 "TPU equiv"): the operand can be synthesized directly as
-device arrays — five (g, g) coefficient planes — without ever materializing a .mtx file.  At
+Addition (SURVEY.md §2.1): the operand can be synthesized directly as device arrays — five
+(g, g) coefficient planes — without ever materializing a .mtx file.  At
 g=20k the reference must write ~2·10⁹ ASCII lines (~60 GB); here the same operand is a 16 GB
 (f64) / 8 GB (f32) on-device values tensor, or 0 bytes in constant-coefficient mode.
 """
@@ -54,12 +54,10 @@ def make_stencil5_planes_device(grid_size: int, diag=DEFAULT_DIAG, offdiag=DEFAU
     """Synthesize the (5, g, g) coefficient planes directly as a jnp array on device —
     the large-grid path that bypasses host memory and .mtx entirely.
 
-    The synthesis MUST run as one jitted program: executed eagerly, the five (g, g)
-    outer products materialize individually BEFORE the stack copies them — a 2× HBM
-    transient (16.8 GB at 20480² f32) that OOMs the 16 GB chip even though the final
-    (5, g, g) operand (8.4 GB) fits.  Under jit XLA fuses mask/outer/stack into a single
-    kernel whose peak footprint is the output alone (measured: 20480² f32 planes
-    synthesize in-place on v5e where the eager form ResourceExhausted'd)."""
+    The synthesis runs as one jitted program: executed eagerly, the five (g, g) outer
+    products would materialize individually BEFORE the stack copies them — a 2× transient
+    (32 GB for 20000² f64 planes).  Under jit XLA fuses mask/outer/stack into a single
+    kernel whose peak footprint is the output alone."""
     import jax.numpy as jnp
 
     g = int(grid_size)

@@ -1,219 +1,21 @@
-"""Fused BLAS1 Pallas kernels for the CG solver.
+"""BLAS1 for the CG solvers, in plain XLA.
 
-Role parity with the reference's kernel set (src/solvers/cg_solver.cu):
-  - ``dot_pallas``        ≙ dot_kernel + final_sum_kernel (:110-132, :384-409) — here a single
-                            kernel accumulating across the sequential TPU grid into SMEM.
-  - ``axpby_dot_pallas``  ≙ axpby_kernel (:48-54) fused with the follow-up dot — used for
-                            r₀ = b − A·x₀ plus (r₀, r₀) in one HBM pass.
-  - ``cg_update_pallas``  ≙ axpy_kernel_device + axpy_sub_kernel_device + dot(r,r)
-                            (:59-85 + :110) fused into ONE pass: x += α·p, r −= α·Ap, and the
-                            (r,r) reduction, reading x,r,p,Ap once and writing x,r once.  The
-                            reference needs three passes over the vectors for the same step.
-  - ``p_update_pallas``   ≙ update_p_kernel p = r + β·p (:90-95).
-
-α/β are runtime (1,1) SMEM operands — the analog of the reference's *device-scalar* kernel
-variants (axpy_kernel_device reads alpha from device memory "to avoid host sync", :59-85):
-passing them as traced values keeps the CG loop free of host round-trips and retraces.
-
-All kernels treat vectors as 2-D (rows, cols) fields (the CG state lives in (g, g) grid form).
-Reductions mask the padded tail of a non-divisible final block with ``jnp.where`` (NaN-safe).
+The reference runs cuBLAS ``ddot`` / ``daxpy`` kernels (src/solvers/cg_solver.cu); here the
+axpy-style updates are written inline where they are used and XLA fuses them with their
+neighbours.  Only the dot needs a rule of its own, kept here.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from ._compat import x64_off_for_32bit
 
 
-def _pick_block_rows(nrows: int, ncols: int, nstreams: int, itemsize: int = 4,
-                     vmem_budget_bytes: int = 4 * 1024 * 1024) -> int:
-    per_row = max(1, nstreams * ncols * itemsize)
-    bg = max(8, min(512, vmem_budget_bytes // per_row))
-    bg = int(bg - (bg % 8)) or 8
-    if nrows < 8:
-        return nrows
-    return min(bg, nrows - nrows % 8 if nrows % 8 else nrows)
+def dot(a, b):
+    """<a, b> accumulated in at least f32.
 
-
-def _acc_dtype(dtype):
-    return jnp.float64 if dtype == jnp.float64 else jnp.float32
-
-
-def _auto_interpret(interpret: bool) -> bool:
-    # Pallas TPU kernels only run compiled on TPU; on the CPU backend interpret mode is the
-    # execution path (and the sanitizer analog per SURVEY.md §5.2).
-    return interpret or jax.default_backend() == "cpu"
-
-
-def _field_spec(bg, ncols):
-    return pl.BlockSpec((bg, ncols), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _smem_scalar_spec():
-    """(1,1) SMEM block — used for both runtime scalar inputs (α/β) and scalar outputs."""
-    return pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-
-
-def _masked_sum(val, i, bg, nrows, ncols):
-    lrow = jax.lax.broadcasted_iota(jnp.int32, (val.shape[0], 1), 0) + i * bg
-    return jnp.sum(jnp.where(lrow < nrows, val, jnp.zeros_like(val)))
-
-
-def _dot_kernel(a_ref, b_ref, out_ref, *, bg, nrows, ncols):
-    i = pl.program_id(0)
-    part = _masked_sum(a_ref[:] * b_ref[:], i, bg, nrows, ncols)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[0, 0] = jnp.zeros((), out_ref.dtype)
-
-    out_ref[0, 0] += part.astype(out_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def dot_pallas(a, b, *, block_rows: int = 0, interpret: bool = False):
-    """<a, b> over 2-D fields, accumulated on device."""
-    interpret = _auto_interpret(interpret)
-    nrows, ncols = a.shape
-    bg = block_rows or _pick_block_rows(nrows, ncols, nstreams=2, itemsize=a.dtype.itemsize)
-    acc = _acc_dtype(a.dtype)
-    with x64_off_for_32bit(a, b):
-        out = pl.pallas_call(
-            functools.partial(_dot_kernel, bg=bg, nrows=nrows, ncols=ncols),
-        grid=(pl.cdiv(nrows, bg),),
-        in_specs=[_field_spec(bg, ncols)] * 2,
-        out_specs=_smem_scalar_spec(),
-        out_shape=jax.ShapeDtypeStruct((1, 1), acc),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nrows * ncols,
-            bytes_accessed=2 * nrows * ncols * a.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(a, b)
-    return out[0, 0]
-
-
-def _axpby_dot_kernel(alpha_ref, beta_ref, x_ref, y_ref, z_ref, zz_ref, *, bg, nrows, ncols):
-    i = pl.program_id(0)
-    z = alpha_ref[0, 0] * x_ref[:] + beta_ref[0, 0] * y_ref[:]
-    z_ref[:] = z
-    part = _masked_sum(z * z, i, bg, nrows, ncols)
-
-    @pl.when(i == 0)
-    def _():
-        zz_ref[0, 0] = jnp.zeros((), zz_ref.dtype)
-
-    zz_ref[0, 0] += part.astype(zz_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def axpby_dot_pallas(alpha, x, beta, y, *, block_rows: int = 0, interpret: bool = False):
-    """z = α·x + β·y and <z, z> in one pass (used for r₀ = b − A·x₀ and its norm)."""
-    interpret = _auto_interpret(interpret)
-    nrows, ncols = x.shape
-    bg = block_rows or _pick_block_rows(nrows, ncols, nstreams=3, itemsize=x.dtype.itemsize)
-    acc = _acc_dtype(x.dtype)
-    a2 = jnp.asarray(alpha, x.dtype).reshape(1, 1)
-    b2 = jnp.asarray(beta, x.dtype).reshape(1, 1)
-    with x64_off_for_32bit(x, y):
-        z, zz = pl.pallas_call(
-            functools.partial(_axpby_dot_kernel, bg=bg, nrows=nrows, ncols=ncols),
-        grid=(pl.cdiv(nrows, bg),),
-        in_specs=[_smem_scalar_spec(), _smem_scalar_spec()] + [_field_spec(bg, ncols)] * 2,
-        out_specs=[_field_spec(bg, ncols), _smem_scalar_spec()],
-        out_shape=[
-            jax.ShapeDtypeStruct((nrows, ncols), x.dtype),
-            jax.ShapeDtypeStruct((1, 1), acc),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=5 * nrows * ncols,
-            bytes_accessed=3 * nrows * ncols * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(a2, b2, x, y)
-    return z, zz[0, 0]
-
-
-def _cg_update_kernel(alpha_ref, x_ref, r_ref, p_ref, ap_ref, xo_ref, ro_ref, rr_ref, *,
-                      bg, nrows, ncols):
-    i = pl.program_id(0)
-    alpha = alpha_ref[0, 0]
-    xo_ref[:] = x_ref[:] + alpha * p_ref[:]
-    r_new = r_ref[:] - alpha * ap_ref[:]
-    ro_ref[:] = r_new
-    part = _masked_sum(r_new * r_new, i, bg, nrows, ncols)
-
-    @pl.when(i == 0)
-    def _():
-        rr_ref[0, 0] = jnp.zeros((), rr_ref.dtype)
-
-    rr_ref[0, 0] += part.astype(rr_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def cg_update_pallas(alpha, x, r, p, ap, *, block_rows: int = 0, interpret: bool = False):
-    """One fused CG state update: x' = x + α·p, r' = r − α·Ap, rr' = <r', r'>.
-
-    The pallas_call aliases x→x' and r→r' in place (donation at the jit boundary is
-    deliberately NOT used: p aliases r on the first CG iteration)."""
-    interpret = _auto_interpret(interpret)
-    nrows, ncols = x.shape
-    bg = block_rows or _pick_block_rows(nrows, ncols, nstreams=6, itemsize=x.dtype.itemsize)
-    acc = _acc_dtype(x.dtype)
-    a2 = jnp.asarray(alpha, x.dtype).reshape(1, 1)
-    with x64_off_for_32bit(x, r, p, ap):
-        xo, ro, rr = pl.pallas_call(
-            functools.partial(_cg_update_kernel, bg=bg, nrows=nrows, ncols=ncols),
-        grid=(pl.cdiv(nrows, bg),),
-        in_specs=[_smem_scalar_spec()] + [_field_spec(bg, ncols)] * 4,
-        out_specs=[_field_spec(bg, ncols), _field_spec(bg, ncols), _smem_scalar_spec()],
-        out_shape=[
-            jax.ShapeDtypeStruct((nrows, ncols), x.dtype),
-            jax.ShapeDtypeStruct((nrows, ncols), x.dtype),
-            jax.ShapeDtypeStruct((1, 1), acc),
-        ],
-        input_output_aliases={1: 0, 2: 1},  # x→x', r→r' in place
-        cost_estimate=pl.CostEstimate(
-            flops=6 * nrows * ncols,
-            bytes_accessed=6 * nrows * ncols * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(a2, x, r, p, ap)
-    return xo, ro, rr[0, 0]
-
-
-def _p_update_kernel(beta_ref, r_ref, p_ref, po_ref):
-    po_ref[:] = r_ref[:] + beta_ref[0, 0] * p_ref[:]
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def p_update_pallas(beta, r, p, *, block_rows: int = 0, interpret: bool = False):
-    """p' = r + β·p (reference update_p_kernel, cg_solver.cu:90-95)."""
-    interpret = _auto_interpret(interpret)
-    nrows, ncols = r.shape
-    bg = block_rows or _pick_block_rows(nrows, ncols, nstreams=3, itemsize=r.dtype.itemsize)
-    b2 = jnp.asarray(beta, r.dtype).reshape(1, 1)
-    with x64_off_for_32bit(r, p):
-        return pl.pallas_call(
-            _p_update_kernel,
-        grid=(pl.cdiv(nrows, bg),),
-        in_specs=[_smem_scalar_spec()] + [_field_spec(bg, ncols)] * 2,
-        out_specs=_field_spec(bg, ncols),
-        out_shape=jax.ShapeDtypeStruct((nrows, ncols), r.dtype),
-        input_output_aliases={2: 0},  # p in place
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nrows * ncols,
-            bytes_accessed=3 * nrows * ncols * r.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(b2, r, p)
+    Taken as an elementwise product and a ``jnp.sum``, never as a ``dot_general``: on the
+    GPU an f32 ``dot_general`` at default precision may run in TF32 (about three decimal
+    digits), which would move CG's α/β and its iteration count.  A reduction has no such
+    mode.  bf16 fields accumulate in f32, so a narrow state cannot corrupt <p, Ap>."""
+    acc = jnp.promote_types(jnp.result_type(a, b), jnp.float32)
+    return jnp.sum(a.astype(acc) * b.astype(acc))

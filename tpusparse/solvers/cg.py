@@ -10,17 +10,17 @@ cg_solve_device :436-706):
            β = rr'/rr ; p = r + β·p
 
 The reference's device-native loop polls a 4-byte convergence flag per iteration
-(cg_solver.cu:598-599) — its only host sync.  The TPU-native analog is stronger: the whole loop
-is a ``jax.lax.while_loop`` under jit, so the convergence predicate never leaves the device and
-the host syncs exactly once, at the end of the solve.
+(cg_solver.cu:598-599) — its only host sync.  Here the whole loop is a ``jax.lax.while_loop``
+under jit, so the convergence predicate never leaves the device and the host syncs exactly
+once, at the end of the solve.
 
 Iteration-count semantics match the reference exactly (:538-650): ``iterations`` counts the
 converging iteration (iter++ on break, :619), so deterministic 14-iteration parity on the
 stencil grids is directly comparable.
 
-Per-iteration HBM traffic (values-carrying stencil, one chip):
+Per-iteration memory traffic floor (values-carrying stencil, one card):
     spmv+dot 7 words/pt, fused update 6, p-update 3 ⇒ 16 words/pt — vs the reference's ~7
-    kernel passes.  The fusions are the TPU-native win flagged in SURVEY.md §2.3.
+    kernel passes.  XLA forms the fusions (SURVEY.md §2.3).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 
-from ..kernels import blas1
+from ..kernels.blas1 import dot
 
 
 @dataclasses.dataclass
@@ -74,8 +74,7 @@ class CGStats:
     dispatch_clipped: tuple = ()
 
 
-def make_cg_step(spmv_dot: Callable, *, use_pallas_blas1: bool = True,
-                 interpret: bool = False):
+def make_cg_step(spmv_dot: Callable):
     """Build the jittable CG iteration body.
 
     ``spmv_dot(p) -> (Ap, pAp)`` is the operator contract — the analog of the reference's
@@ -93,52 +92,20 @@ def make_cg_step(spmv_dot: Callable, *, use_pallas_blas1: bool = True,
             ap, pap = spmv_dot(p)
         alpha = (rr / pap).astype(x.dtype)
         with profiling.scope(profiling.PHASE_AXPY):
-            if use_pallas_blas1:
-                x, r, rr_new = blas1.cg_update_pallas(alpha, x, r, p, ap,
-                                                      interpret=interpret)
-            else:
-                x = x + alpha * p
-                r = r - alpha * ap
-                rr_new = _vdot2(r, r)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rr_new = dot(r, r)
         beta = (rr_new / rr).astype(x.dtype)
         with profiling.scope("BLAS_Update_P"):
-            if use_pallas_blas1:
-                p = blas1.p_update_pallas(beta, r, p, interpret=interpret)
-            else:
-                p = r + beta * p
+            p = r + beta * p
         return x, r, p, rr_new, k + 1
 
     return step
 
 
-def _resolve_blas1(use_pallas_blas1):
-    """None → backend default.  Measured on v5e (10240², 14-iter solve): the XLA-fused
-    elementwise/reduction phases run the loop at 157 ms vs 166 ms with the hand Pallas BLAS1
-    kernels — XLA's fusion already saturates HBM for these pure-streaming phases, so it is the
-    TPU default.  CPU (interpret mode) keeps the Pallas path as the in-loop kernel coverage."""
-    if use_pallas_blas1 is None:
-        return jax.default_backend() == "cpu"
-    return use_pallas_blas1
-
-
-def _vdot2(a, b):
-    """<a, b> for solver fields without flattening f64.  ``jnp.vdot`` ravels its inputs;
-    under f64 EMULATION on TPU a flat f64 array lowers to f32[2, n] whose 2-sublane dim
-    tile-pads to 8 (T(8,128)) — 4x phantom HBM (32 GB at 16384^2, measured compile log),
-    and layout assignment propagates that flat layout into the while-loop state.  Summing
-    over the native 2-D field keeps the emulated layout tile-friendly.  f32 keeps
-    jnp.vdot bit-exactly: committed artifacts' iteration counts depend on its reduction
-    order."""
-    if a.dtype == jnp.float64 and a.ndim >= 2:
-        return jnp.sum(a * b)
-    return jnp.vdot(a, b)
-
-
 def cg_solve(operator_or_spmv_dot, b, x0=None, *, config: Optional[CGConfig] = None,
-             spmv: Optional[Callable] = None, use_pallas_blas1: Optional[bool] = None,
-             interpret: bool = False, b_is_ones: bool = False,
-             fused_pupdate: Optional[bool] = None,
-             recompute_ap: Optional[bool] = None):
+             spmv: Optional[Callable] = None, b_is_ones: bool = False,
+             recompute_ap: bool = False):
     """Device-resident CG solve.  Returns (x, CGStats).
 
     Args:
@@ -150,21 +117,14 @@ def cg_solve(operator_or_spmv_dot, b, x0=None, *, config: Optional[CGConfig] = N
       x0: initial guess (default zeros, the reference CLI default cg_solver.cu:124-128).
       spmv: optional plain ``x -> A·x`` used once for r₀ when x0 ≠ 0.
       b_is_ones: declare that b is the canonical all-ones RHS (and x0 is zeros).  b and x0
-        are then SYNTHESIZED inside the compiled solve instead of passed as buffers — on a
-        20480² grid that reclaims 3.4 GB of HBM, the difference between fitting and OOM.
-      fused_pupdate: use the operator's fused (p' = r + β·p) + SpMV + dot pass when it
-        provides one (run_fused_pupdate_op) — one fewer full-field HBM read per iteration.
-        Strictly OPT-IN (None → off): measured slower on v5e despite the byte savings
-        (write-cost asymmetry, see docs/PERFORMANCE.md); mathematically identical either way.
-      recompute_ap: the 8-words/pt two-pass iteration (run_pupdate_dot_op +
-        run_update_recompute_op): Ap is recomputed in registers by both passes and never
-        touches HBM — 11 → 8 words/pt/iter for the values-free operator.  None → AUTO:
-        on when the operator provides both passes (measured faster at every benchmark
-        grid, docs/PERFORMANCE.md round-5 per-iteration audit); False forces the classic
-        3-pass loop; True errors if the operator lacks the passes.
+        are then SYNTHESIZED inside the compiled solve instead of passed as buffers — two
+        fewer (g, g) fields resident during the solve.
+      recompute_ap: the two-pass iteration (run_pupdate_dot_op + run_update_recompute_op):
+        Ap is recomputed by both passes and never stored — 11 → 8 words/pt/iter for the
+        values-free operator by the byte model.  Off by default: on the H100 XLA's classic
+        loop was faster (PERF.md).  True errors if the operator lacks the passes.
     """
     config = config or CGConfig()
-    use_pallas_blas1 = _resolve_blas1(use_pallas_blas1)
     if b_is_ones and x0 is not None:
         raise ValueError("b_is_ones implies x0 = 0")
     nonzero_x0 = x0 is not None
@@ -178,27 +138,19 @@ def cg_solve(operator_or_spmv_dot, b, x0=None, *, config: Optional[CGConfig] = N
             # silently treating this as x0 = 0 would converge to x0 + A⁻¹b
             raise ValueError("nonzero x0 requires the operator to provide run_device_op")
         spmv_op = op.run_device_op if nonzero_x0 else None
-        # opt-in: measured on v5e the fused pass saves HBM words but has not shown a
-        # reliable wall-time win over XLA's separate passes (write-heavy mix; see
-        # docs/PERFORMANCE.md ceiling probes) — keep the proven default
-        fused = getattr(op, "run_fused_pupdate_op", None) if fused_pupdate else None
-        # recompute-Ap loop: AUTO-on when the operator provides both passes (measured
-        # faster; see docstring), unless the caller forces the classic loop
         pupd_dot = getattr(op, "run_pupdate_dot_op", None)
         upd_rec = getattr(op, "run_update_recompute_op", None)
         recomp = None
-        if recompute_ap is not False and fused is None \
-                and pupd_dot is not None and upd_rec is not None:
+        if recompute_ap and pupd_dot is not None and upd_rec is not None:
             recomp = (pupd_dot, upd_rec)
-        if recompute_ap is True and recomp is None:
+        if recompute_ap and recomp is None:
             raise ValueError("recompute_ap requested but the operator lacks "
-                             "run_pupdate_dot_op/run_update_recompute_op "
-                             "(or fused_pupdate was also requested)")
+                             "run_pupdate_dot_op/run_update_recompute_op")
         # cache key holds the CALLABLE itself, not id(): function objects hash by identity
         # and the key's strong reference pins them, so a freed operator's id can never be
         # recycled into a false cache hit (the id()-keying correctness hazard)
         key_id = ("op", op.name, op.num_rows, op.run_device_dot_op, nonzero_x0,
-                  fused is not None, recomp is not None)
+                  recomp is not None)
     else:
         if nonzero_x0 and spmv is None:
             raise ValueError(
@@ -208,19 +160,14 @@ def cg_solve(operator_or_spmv_dot, b, x0=None, *, config: Optional[CGConfig] = N
         spmv_dot = lambda p, _o: operator_or_spmv_dot(p)  # noqa: E731
         operands = ()
         spmv_op = (lambda x, _o: spmv(x)) if nonzero_x0 else None
-        fused = None
         recomp = None
-        if recompute_ap is True:
+        if recompute_ap:
             raise ValueError("recompute_ap requires a DeviceOperator with the "
                              "recompute passes, not a bare spmv_dot callable")
         key_id = ("fn", _IdentityKey.wrap(operator_or_spmv_dot), _IdentityKey.wrap(spmv),
                   nonzero_x0)
-    if fused_pupdate is True and fused is None:
-        raise ValueError("fused_pupdate requested but the operator has no "
-                         "run_fused_pupdate_op")
-    solve = _build_solver(spmv_dot, spmv_op, use_pallas_blas1, interpret,
-                          config.max_iters, float(config.tolerance), b, key_id,
-                          synth_b=b_is_ones, fused=fused, recomp=recomp)
+    solve = _build_solver(spmv_dot, spmv_op, config.max_iters, float(config.tolerance), b,
+                          key_id, synth_b=b_is_ones, recomp=recomp)
     t0 = time.perf_counter()
     if b_is_ones:
         x, scalars = solve(operands)
@@ -228,9 +175,7 @@ def cg_solve(operator_or_spmv_dot, b, x0=None, *, config: Optional[CGConfig] = N
         if x0 is None:
             x0 = jnp.zeros_like(b)
         x, scalars = solve(b, x0, operands)
-    # ONE device→host transfer for (rr, k, b_norm): separate float()/int() readbacks each
-    # cost a full round trip on remote deployments (~25 ms measured) and were dominating
-    # the solve wall time.  Fetching the packed scalars is also the completion sync.
+    # ONE device→host transfer for (rr, k, b_norm) instead of three scalar readbacks
     rr, k_f, b_norm = (float(v) for v in jax.device_get(scalars))
     k = int(k_f)
     x.block_until_ready()
@@ -274,45 +219,22 @@ class _IdentityKey:
 _SOLVER_CACHE = {}
 
 
-def _build_solver(spmv_dot, spmv, use_pallas_blas1, interpret, max_iters, tolerance,
-                  example_b, key_id, synth_b: bool = False, fused=None, recomp=None):
+def _build_solver(spmv_dot, spmv, max_iters, tolerance, example_b, key_id,
+                  synth_b: bool = False, recomp=None):
     """Build the jitted solve.  ``spmv_dot(p, operands)`` / ``spmv(x, operands)`` take the
     operator's device arrays explicitly so they enter the compiled program as runtime
     arguments, never inline constants.  Call ``solve(b, x0, operands)``, or
     ``solve(operands)`` when ``synth_b`` (b = ones and x0 = 0 are created in-graph).
 
-    ``fused``: optional (beta, r, p, operands) -> (p', A·p', <p',A·p'>) pass; the loop then
-    carries (x, r, p_prev, rr, rr_prev, k) and computes β and the p-update INSIDE the SpMV
-    pass — same arithmetic per element, one fewer full-field HBM read per iteration.
-
     ``recomp``: optional (pupd_dot, upd_rec) pass pair — the 8-words/pt recompute-Ap
-    iteration (kernels/stencil5.py round-5 block comment): pass A forms p' = r + β·p and
-    <p', A·p'> (Ap' in registers), pass B forms x', r', <r', r'> recomputing A·p' from
-    the p' stream.  Same algebra, Ap never materialized in HBM."""
-    key = (key_id, use_pallas_blas1, interpret, max_iters, tolerance,
-           example_b.shape, str(example_b.dtype), synth_b)
+    iteration (kernels/stencil5.py): pass A forms p' = r + β·p and <p', A·p'>, pass B
+    forms x', r', <r', r'> recomputing A·p' from p'.  Same algebra, Ap never stored.
+    The loop then carries (x, r, p_prev, rr, rr_prev, k) and computes β inside pass A."""
+    key = (key_id, max_iters, tolerance, example_b.shape, str(example_b.dtype), synth_b)
     if key in _SOLVER_CACHE:
         return _SOLVER_CACHE[key]
 
     b_shape, b_dtype = example_b.shape, example_b.dtype
-
-    def _fused_step(operands):
-        from ..bench import profiling
-
-        def step(state):
-            x, r, p_prev, rr, rr_prev, k = state
-            beta = jnp.where(k == 0, jnp.zeros((), x.dtype),
-                             (rr / rr_prev).astype(x.dtype))
-            with profiling.scope(profiling.PHASE_SPMV):
-                p, ap, pap = fused(beta, r, p_prev, operands)
-            alpha = (rr / pap).astype(x.dtype)
-            with profiling.scope(profiling.PHASE_AXPY):
-                x = x + alpha * p
-                r = r - alpha * ap
-                rr_new = _vdot2(r, r)
-            return x, r, p, rr_new, rr, k + 1
-
-        return step
 
     def _recompute_step(operands):
         from ..bench import profiling
@@ -333,39 +255,28 @@ def _build_solver(spmv_dot, spmv, use_pallas_blas1, interpret, max_iters, tolera
         return step
 
     def _solve(b, x0, operands):
-        step = make_cg_step(lambda p: spmv_dot(p, operands),
-                            use_pallas_blas1=use_pallas_blas1, interpret=interpret)
+        step = make_cg_step(lambda p: spmv_dot(p, operands))
         if spmv is None:
             # x₀ = 0 fast path: r₀ = b
             r0 = b
-            if use_pallas_blas1:
-                rr0 = blas1.dot_pallas(r0, r0, interpret=interpret)
-            else:
-                rr0 = _vdot2(r0, r0)
+            rr0 = dot(r0, r0)
             bb = rr0
         else:
-            ax0 = spmv(x0, operands)
-            if use_pallas_blas1:
-                # fused r0 = 1·b + (−1)·A·x0 and <r0, r0> in one HBM pass
-                one = jnp.ones((), b.dtype)
-                r0, rr0 = blas1.axpby_dot_pallas(one, b, -one, ax0, interpret=interpret)
-            else:
-                r0 = b - ax0
-                rr0 = _vdot2(r0, r0)
+            r0 = b - spmv(x0, operands)
+            rr0 = dot(r0, r0)
             # the criterion is relative to ‖b‖, NOT ‖r0‖ (they differ when x0 ≠ 0)
-            bb = _vdot2(b, b).astype(rr0.dtype)
+            bb = dot(b, b).astype(rr0.dtype)
         b_norm = jnp.sqrt(bb)
         tol2 = (tolerance * tolerance) * bb  # converged ⇔ rr < tol²·‖b‖²
 
-        if fused is not None or recomp is not None:
+        if recomp is not None:
             def fcond(state):
                 return jnp.logical_and(state[5] < max_iters, state[3] > tol2)
 
             fstate0 = (x0, r0, jnp.zeros_like(r0), rr0, jnp.ones_like(rr0),
                        jnp.zeros((), jnp.int32))
-            step = _fused_step(operands) if fused is not None \
-                else _recompute_step(operands)
-            x, r, p, rr, _rrp, k = jax.lax.while_loop(fcond, step, fstate0)
+            x, r, p, rr, _rrp, k = jax.lax.while_loop(fcond, _recompute_step(operands),
+                                                      fstate0)
             sdt = rr.dtype if rr.dtype in (jnp.float32, jnp.float64) else jnp.float32
             return x, jnp.stack([rr.astype(sdt), k.astype(sdt), b_norm.astype(sdt)])
 
@@ -393,15 +304,13 @@ def _build_solver(spmv_dot, spmv, use_pallas_blas1, interpret, max_iters, tolera
 
 
 def cg_solve_stepped(spmv_dot: Callable, b, x0=None, *, config: Optional[CGConfig] = None,
-                     spmv: Optional[Callable] = None, use_pallas_blas1: Optional[bool] = None,
-                     interpret: bool = False):
+                     spmv: Optional[Callable] = None):
     """Host-stepped CG with per-phase wall timing — the ``--timers`` mode.
 
     Mirrors the reference's opt-in detailed timers (cg_solver.h:25, cg_solver.cu:543-547):
     phase-split stepping costs sync overhead, so it is a diagnostic mode, not the perf path.
     Returns (x, CGStats) with spmv/blas1/reduction breakdowns."""
     config = config or CGConfig()
-    use_pallas_blas1 = _resolve_blas1(use_pallas_blas1)
     if x0 is None:
         x0 = jnp.zeros_like(b)
         r = b
@@ -412,12 +321,9 @@ def cg_solve_stepped(spmv_dot: Callable, b, x0=None, *, config: Optional[CGConfi
         r = b - ax0
     x = x0
     p = r
-    if use_pallas_blas1:
-        rr = float(blas1.dot_pallas(r, r, interpret=interpret))
-    else:
-        rr = float(jnp.vdot(r, r))
+    rr = float(dot(r, r))
     # criterion is relative to ‖b‖ (differs from ‖r0‖ when x0 ≠ 0)
-    b_norm = float(jnp.vdot(b, b)) ** 0.5
+    b_norm = float(dot(b, b)) ** 0.5
     stats = CGStats()
     t_solve = time.perf_counter()
     k = 0
@@ -425,9 +331,7 @@ def cg_solve_stepped(spmv_dot: Callable, b, x0=None, *, config: Optional[CGConfi
     while k < config.max_iters and not converged:
         # Reductions are a first-class phase (reference cg_solver.h:28-43 reduction bucket):
         # the scalar readbacks (float(pap), float(rr)) are timed separately from the array
-        # compute.  On deployments where block_until_ready doesn't truly block (documented
-        # relay behavior) the compute buckets undercount and reductions absorb the tail —
-        # the split is exact on CPU and a labeled approximation there.
+        # compute.
         t0 = time.perf_counter()
         ap, pap = spmv_dot(p)
         jax.block_until_ready(ap)
@@ -437,12 +341,9 @@ def cg_solve_stepped(spmv_dot: Callable, b, x0=None, *, config: Optional[CGConfi
         stats.reduction_time_ms += (time.perf_counter() - t0) * 1e3
         alpha = rr / pap
         t0 = time.perf_counter()
-        if use_pallas_blas1:
-            x, r, rr_new = blas1.cg_update_pallas(alpha, x, r, p, ap, interpret=interpret)
-        else:
-            x = x + alpha * p
-            r = r - alpha * ap
-            rr_new = _vdot2(r, r)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rr_new = dot(r, r)
         jax.block_until_ready(r)
         stats.blas1_time_ms += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
@@ -457,10 +358,7 @@ def cg_solve_stepped(spmv_dot: Callable, b, x0=None, *, config: Optional[CGConfi
         else:
             beta = rr_new / rr
             t0 = time.perf_counter()
-            if use_pallas_blas1:
-                p = blas1.p_update_pallas(beta, r, p, interpret=interpret)
-            else:
-                p = r + beta * p
+            p = r + beta * p
             jax.block_until_ready(p)
             stats.blas1_time_ms += (time.perf_counter() - t0) * 1e3
         rr = rr_new

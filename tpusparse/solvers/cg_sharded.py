@@ -1,22 +1,24 @@
 """Multi-chip sharded Conjugate Gradient — the framework's flagship (reference
 ``cg_solve_mgpu_partitioned``, src/solvers/cg_solver_mgpu_partitioned.cu:236-908).
 
-Mapping from the reference's MPI design to TPU (SURVEY.md §2.4 / §5.8):
+Mapping from the reference's MPI design (SURVEY.md §2.4 / §5.8):
 
-  reference (CUDA + MPI)                         this solver (JAX on TPU)
+  reference (CUDA + MPI)                         this solver (JAX, one process, shard_map)
   ------------------------------------------     -----------------------------------------
-  1 MPI rank = 1 GPU, cudaSetDevice(rank)        1-D ``jax.sharding.Mesh`` over all chips
+  1 MPI rank = 1 GPU, cudaSetDevice(rank)        1-D ``jax.sharding.Mesh`` over the cards
   1-D row-band partition n/P (+remainder)        field rows sharded P("x"): band = g/P rows
   pinned-host staged MPI_Isend/Irecv halo        ``jax.lax.ppermute`` of ONE boundary row
-    (cudaMemcpyAsync D2H→MPI→H2D, :173-231)        per direction, straight over ICI
-  cublasDdot + MPI_Allreduce(1 double)           fused Pallas local dot + ``jax.lax.psum``
+    (cudaMemcpyAsync D2H→MPI→H2D, :173-231)        per direction, card to card (NCCL)
+  cublasDdot + MPI_Allreduce(1 double)           fused local SpMV+dot + ``jax.lax.psum``
   MPI_Gatherv of the solution (:834-851)         out_spec resharding (XLA all-gather)
   per-vector halo: x₀ once, r once, p per-iter   identical schedule: p's halo per iteration
 
 The reference's staging pipeline exists because CUDA-aware MPI wasn't assumed
-(cg_solver_mgpu_partitioned.cu:160-171); on TPU the ICI collective replaces the entire staging
-layer.  Halo volume parity: one grid-row (g elements) per neighbor per iteration — the same
-O(g) communication vs O(g²/P) compute that gives the reference its 93% strong scaling.
+(cg_solver_mgpu_partitioned.cu:160-171); here XLA's collectives move the rows between cards
+directly.  The mesh follows the algorithm (row bands, or row × column blocks), since every
+card reaches every other at the same rate.  Halo volume parity: one grid-row (g elements) per
+neighbor per iteration — the same O(g) communication vs O(g²/P) compute that gives the
+reference its 93% strong scaling.
 
 The whole solve — halo exchanges, SpMV, reductions, convergence — is ONE jitted
 ``shard_map``-wrapped ``lax.while_loop``: zero host round-trips during the solve (the reference
@@ -33,18 +35,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..kernels import blas1
+from ..kernels.blas1 import dot
 from ..kernels.stencil5 import (
-    cg_const_update_recompute_pipelined,
-    spmv_stencil5_const_pipelined,
-    spmv_stencil5_const_pupdate_dot_pipelined,
-    spmv_stencil5_pipelined,
+    const_pupdate_dot,
+    const_update_recompute,
+    spmv_dot_stencil5_const_xla,
+    spmv_dot_stencil5_xla,
+    spmv_stencil5_const_xla,
+    spmv_stencil5_xla,
 )
-from .cg import CGConfig, CGStats, _resolve_blas1
+from .cg import CGConfig, CGStats
 
 
 def _band_halo_exchange(field_block, axis_name: str, axis_size: int):
-    """Exchange boundary rows with row-band neighbors over ICI.
+    """Exchange boundary rows with row-band neighbors.
 
     Returns (halo_prev, halo_next), each (1, cols): the neighbor's adjacent boundary row.
     Edge shards receive zeros (``ppermute`` fills missing sources with zeros), which is
@@ -64,7 +68,7 @@ def _band_halo_exchange(field_block, axis_name: str, axis_size: int):
 class ShardedOperator:
     """Row-band sharded operator: the sharded analog of ops.DeviceOperator.
 
-    Modes: the three stencil flavors (Pallas row-halo kernels), plus ``"csr"`` — a
+    Modes: the three stencil flavors (row-halo XLA stencils), plus ``"csr"`` — a
     GENERIC band-local ELL-gather kernel, the analog of the textbook CSR kernel the
     reference carries inside its partitioned solver for comparison
     (cg_solver_mgpu_partitioned.cu:40-56).  Like the reference's partitioned kernels it
@@ -124,7 +128,7 @@ class ShardedOperator:
         return jnp.zeros((), self.dtype)
 
     def _ell_band_spmv(self, cols_l, vals_l, p_l, hp, hn):
-        """Generic band-local gather SpMV: the reference's comparison CSR kernel, TPU-style.
+        """Generic band-local gather SpMV: the reference's comparison CSR kernel.
 
         The gatherable domain is [halo_prev; local band; halo_next] flattened; global
         column c maps to local index c − (row_offset − g).  Columns outside the domain are
@@ -147,27 +151,22 @@ class ShardedOperator:
         if self.mode == "csr":
             return self._ell_band_spmv(operands_l[0], operands_l[1], p_l, hp, hn)
         if self.mode == "stencil5-const":
-            return spmv_stencil5_const_pipelined(p_l, hp, hn, diag=self.diag,
-                                              offdiag=self.offdiag)
-        return spmv_stencil5_pipelined(operands_l, p_l, hp, hn)
+            return spmv_stencil5_const_xla(p_l, self.diag, self.offdiag, hp, hn)
+        return spmv_stencil5_xla(operands_l, p_l, hp, hn)
 
     def local_spmv_dot(self, operands_l, p_l, axis_name: str, axis_size: int):
         """Local band SpMV + global <p, Ap>.  Runs inside shard_map."""
         if self.mode == "csr":
             hp, hn = _band_halo_exchange(p_l, axis_name, axis_size)
             y = self._ell_band_spmv(operands_l[0], operands_l[1], p_l, hp, hn)
-            acc = jnp.float64 if y.dtype == jnp.float64 else jnp.float32
-            pap_local = jnp.vdot(p_l.astype(acc), y.astype(acc))
-            return y, jax.lax.psum(pap_local, axis_name)
+            return y, jax.lax.psum(dot(p_l, y), axis_name)
         if self.overlap and axis_size > 1 and p_l.shape[0] >= 3:
             return self._spmv_dot_overlapped(operands_l, p_l, axis_name, axis_size)
         hp, hn = _band_halo_exchange(p_l, axis_name, axis_size)
         if self.mode == "stencil5-const":
-            y, pap_local = spmv_stencil5_const_pipelined(
-                p_l, hp, hn, diag=self.diag, offdiag=self.offdiag, with_dot=True
-            )
+            y, pap_local = spmv_dot_stencil5_const_xla(p_l, self.diag, self.offdiag, hp, hn)
         else:
-            y, pap_local = spmv_stencil5_pipelined(operands_l, p_l, hp, hn, with_dot=True)
+            y, pap_local = spmv_dot_stencil5_xla(operands_l, p_l, hp, hn)
         return y, jax.lax.psum(pap_local, axis_name)
 
     def _spmv_dot_overlapped(self, planes_l, p_l, axis_name: str, axis_size: int):
@@ -176,22 +175,20 @@ class ShardedOperator:
         synchronous before the SpMV, cg_solver_mgpu_partitioned.cu:692-711; README attributes
         wins to 'kernel + volume, not overlap').
 
-        The interior rows [1, band-1) depend only on local data, so the Pallas kernel over
-        them has no data dependency on the ppermute: XLA schedules the collective-permute
-        start before the kernel and the done right before the (cheap, 2-row) boundary math.
+        The interior rows [1, band-1) depend only on local data, so their SpMV has no data
+        dependency on the ppermute and XLA may schedule the collective-permute start before
+        it and the done right before the (cheap, 2-row) boundary math.  Whether it does is
+        up to XLA's scheduler: one fusion may also take in both the interior and the halo
+        rows.
         """
-        band = p_l.shape[0]
         hp, hn = _band_halo_exchange(p_l, axis_name, axis_size)
 
         if self.mode == "stencil5-const":
-            y_core, dot_core = spmv_stencil5_const_pipelined(
-                p_l[1:-1], p_l[0:1], p_l[-1:], diag=self.diag, offdiag=self.offdiag,
-                with_dot=True,
-            )
+            y_core, dot_core = spmv_dot_stencil5_const_xla(
+                p_l[1:-1], self.diag, self.offdiag, p_l[0:1], p_l[-1:])
         else:
-            y_core, dot_core = spmv_stencil5_pipelined(
-                planes_l[:, 1:-1], p_l[1:-1], p_l[0:1], p_l[-1:], with_dot=True
-            )
+            y_core, dot_core = spmv_dot_stencil5_xla(
+                planes_l[:, 1:-1], p_l[1:-1], p_l[0:1], p_l[-1:])
 
         # Boundary rows (2 of band): plain XLA math, consumes the halo rows.
         from ..formats import C, E, N, S, W
@@ -217,11 +214,7 @@ class ShardedOperator:
         y_last = row_y(p_last, p_l[-1:], p_l[-2:-1], hn)
         y = jnp.concatenate([y_first, y_core, y_last], axis=0)
         # keep the f32 accumulator: downcasting to a bf16 field dtype would corrupt pAp
-        pap_local = (
-            dot_core
-            + jnp.vdot(p_l[0:1], y_first).astype(dot_core.dtype)
-            + jnp.vdot(p_l[-1:], y_last).astype(dot_core.dtype)
-        )
+        pap_local = dot_core + dot(p_l[0:1], y_first) + dot(p_l[-1:], y_last)
         return y, jax.lax.psum(pap_local, axis_name)
 
 
@@ -389,11 +382,10 @@ _SOLVER_CACHE = {}
 
 
 def _build_sharded_solver(op: ShardedOperator, max_iters: int, tolerance: float,
-                          use_pallas_blas1: bool, synth_b: bool = False,
-                          recompute: bool = False):
+                          synth_b: bool = False, recompute: bool = False):
     # op.mesh (not id(op.mesh)): see the _OPERATOR_CACHE key comment
     key = (op.mesh, op.grid_size, op.mode, op.diag, op.offdiag, str(op.dtype),
-           op.overlap, max_iters, tolerance, use_pallas_blas1, synth_b, recompute)
+           op.overlap, max_iters, tolerance, synth_b, recompute)
     if key in _SOLVER_CACHE:
         return _SOLVER_CACHE[key]
 
@@ -420,11 +412,7 @@ def _build_sharded_solver(op: ShardedOperator, max_iters: int, tolerance: float,
             return op.local_spmv_dot(operands_l, p_l, axis, naxis)
 
         r0 = b_l  # x0 = 0
-        if use_pallas_blas1:
-            rr0_local = blas1.dot_pallas(r0, r0)
-        else:
-            rr0_local = jnp.vdot(r0, r0)
-        rr0 = jax.lax.psum(rr0_local, axis)
+        rr0 = jax.lax.psum(dot(r0, r0), axis)
         b_norm = jnp.sqrt(rr0)
         tol2 = (tolerance * tolerance) * rr0
 
@@ -437,26 +425,18 @@ def _build_sharded_solver(op: ShardedOperator, max_iters: int, tolerance: float,
             x, r, p, rr, k = state
             ap, pap = spmv_dot(p)
             alpha = (rr / pap).astype(x.dtype)
-            if use_pallas_blas1:
-                x, r, rr_local = blas1.cg_update_pallas(alpha, x, r, p, ap)
-            else:
-                x = x + alpha * p
-                r = r - alpha * ap
-                rr_local = jnp.vdot(r, r)
-            rr_new = jax.lax.psum(rr_local, axis)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rr_new = jax.lax.psum(dot(r, r), axis)
             beta = (rr_new / rr).astype(x.dtype)
-            if use_pallas_blas1:
-                p = blas1.p_update_pallas(beta, r, p)
-            else:
-                p = r + beta * p
+            p = r + beta * p
             return x, r, p, rr_new, k + 1
 
         def step_recompute(state):
-            """The 8-words/pt recompute-Ap iteration, sharded (kernels/stencil5.py
-            round-5 block comment).  Comm volume is IDENTICAL to the classic loop —
-            the p' boundary rows are computed locally (p' = r + β·p is elementwise)
-            and exchanged as the halo, one row per neighbor per iteration; the two
-            Pallas passes then consume the same halo rows."""
+            """The 8-words/pt recompute-Ap iteration, sharded (kernels/stencil5.py).
+            Comm volume is IDENTICAL to the classic loop — the p' boundary rows are
+            computed locally (p' = r + β·p is elementwise) and exchanged as the halo,
+            one row per neighbor per iteration; both passes consume the same halo rows."""
             x, r, p, rr, rr_prev, k = state
             beta = jnp.where(k == 0, jnp.zeros((), x.dtype),
                              (rr / rr_prev).astype(x.dtype))
@@ -467,12 +447,11 @@ def _build_sharded_solver(op: ShardedOperator, max_iters: int, tolerance: float,
                 up = [(i + 1, i) for i in range(naxis - 1)]
                 hp = jax.lax.ppermute(r[-1:, :] + beta * p[-1:, :], axis, down)
                 hn = jax.lax.ppermute(r[:1, :] + beta * p[:1, :], axis, up)
-            pnew, pap_local = spmv_stencil5_const_pupdate_dot_pipelined(
-                beta, r, p, hp, hn, diag=op.diag, offdiag=op.offdiag)
+            pnew, pap_local = const_pupdate_dot(beta, r, p, op.diag, op.offdiag, hp, hn)
             pap = jax.lax.psum(pap_local, axis)
             alpha = (rr / pap).astype(x.dtype)
-            x, r, rr_local = cg_const_update_recompute_pipelined(
-                alpha, x, r, pnew, hp, hn, diag=op.diag, offdiag=op.offdiag)
+            x, r, rr_local = const_update_recompute(alpha, x, r, pnew, op.diag,
+                                                    op.offdiag, hp, hn)
             rr_new = jax.lax.psum(rr_local, axis)
             return x, r, pnew, rr_new, rr, k + 1
 
@@ -519,15 +498,14 @@ def cg_solve_sharded(mesh: Mesh, grid_size: int, *, b=None, mode: str = "stencil
                      planes=None, matrix=None, diag: float = 5.0, offdiag: float = -1.0,
                      tolerance: float = 1e-6, max_iters: int = 1000, dtype=jnp.float32,
                      overlap: bool = True, config: Optional[CGConfig] = None,
-                     use_pallas_blas1: Optional[bool] = None,
                      operator: Optional[ShardedOperator] = None,
-                     recompute_ap: Optional[bool] = None):
+                     recompute_ap: bool = False):
     """Full sharded CG solve over the mesh.  Returns (x, CGStats).
 
     ``recompute_ap``: the 8-words/pt two-pass iteration for ``mode="stencil5-const"``
-    (same auto semantics as cg.cg_solve: None → on when the mode supports it).  Comm
-    volume is unchanged — the p' boundary rows are computed locally and exchanged as
-    the per-iteration halo, exactly one row per neighbor like the classic loop.
+    (off by default, as in cg.cg_solve).  Comm volume is unchanged — the p' boundary rows
+    are computed locally and exchanged as the per-iteration halo, exactly one row per
+    neighbor like the classic loop.
 
     ``x`` is the (g, g) solution as a row-band-sharded ``jax.Array`` — EXCEPT when the grid
     does not divide the device count (``op.row_pad > 0``): slicing the padded tail off a
@@ -545,12 +523,11 @@ def cg_solve_sharded(mesh: Mesh, grid_size: int, *, b=None, mode: str = "stencil
         offdiag=offdiag, dtype=dtype, overlap=overlap,
     )
     synth_b = b is None
-    recomp = op.mode == "stencil5-const" if recompute_ap is None else bool(recompute_ap)
+    recomp = bool(recompute_ap)
     if recomp and op.mode != "stencil5-const":
         raise ValueError("recompute_ap: only mode='stencil5-const' provides the "
                          "recompute passes in the sharded solver")
-    solve = _build_sharded_solver(op, max_iters, float(tolerance),
-                                  _resolve_blas1(use_pallas_blas1), synth_b=synth_b,
+    solve = _build_sharded_solver(op, max_iters, float(tolerance), synth_b=synth_b,
                                   recompute=recomp)
     operands_arg = op.operands_arg
     if synth_b:
@@ -659,7 +636,7 @@ def cg_solve_sharded_stepped(mesh: Mesh, grid_size: int, *, b=None,
         out_specs=band_spec, check_vma=False,
     ))
     dot_allreduce = jax.jit(jax.shard_map(
-        lambda al, bl: jax.lax.psum(blas1.dot_pallas(al, bl), axis),
+        lambda al, bl: jax.lax.psum(dot(al, bl), axis),
         mesh=mesh, in_specs=(band_spec, band_spec), out_specs=P(),
         check_vma=False,
     ))
@@ -670,7 +647,7 @@ def cg_solve_sharded_stepped(mesh: Mesh, grid_size: int, *, b=None,
         out_specs=(band_spec, band_spec), check_vma=False,
     ))
     pupd = jax.jit(jax.shard_map(
-        lambda beta, rl, pl_: blas1.p_update_pallas(beta, rl, pl_),
+        lambda beta, rl, pl_: rl + beta * pl_,
         mesh=mesh, in_specs=(P(), band_spec, band_spec),
         out_specs=band_spec, check_vma=False,
     ))
@@ -763,14 +740,11 @@ def cg_solve_sharded_stepped(mesh: Mesh, grid_size: int, *, b=None,
 # standard scaling argument for stencil codes on 2-D meshes.
 #
 # Layout: the (g, g) field is block-sharded P("x", "y"); the 5 coefficient planes (when
-# values-carrying) P(None, "x", "y").  The local SpMV reuses the row-halo Pallas kernels
-# unchanged and applies the two column-edge corrections as rank-1 XLA updates:
-#   values kernel replicates the block-edge column internally (relying on the global W/E
-#     plane being zero at true grid edges), so the correction REPLACES that term:
-#       y[:, :1]  += W_plane[:, :1]  · (halo_w − x[:, :1])
-#       y[:, -1:] += E_plane[:, -1:] · (halo_e − x[:, -1:])
-#   const kernel lane-masks block edges to exactly zero, so the correction ADDS:
-#       y[:, :1] += offdiag · halo_w ;  y[:, -1:] += offdiag · halo_e
+# values-carrying) P(None, "x", "y").  The local SpMV reuses the row-halo stencils unchanged:
+# they read zero beyond the block's west/east edges, so the two column-edge terms are ADDED
+# as rank-1 updates:
+#   values:  y[:, :1] += W_plane[:, :1] · halo_w ;  y[:, -1:] += E_plane[:, -1:] · halo_e
+#   const:   y[:, :1] += offdiag · halo_w        ;  y[:, -1:] += offdiag · halo_e
 # Global grid edges need no casing: ppermute zero-fills edge shards (Dirichlet as data,
 # same invariant as the 1-D path).  5-point stencils touch no diagonal neighbors, so no
 # corner exchange exists at all.
@@ -833,10 +807,10 @@ def cg_solve_sharded_2d(mesh: Mesh, grid_size: int, *, mode: str = "stencil5",
 
     ``mesh`` must have exactly two axes; ``grid_size`` must divide by both extents
     (2-D padding is not implemented — use the 1-D solver for remainder grids).
-    ``overlap=True`` (default) splits interior/boundary like the 1-D path: the Pallas
-    core covers rows [1, rows−1) with LOCAL halo rows, so it has no data dependency on
-    any of the four ppermutes — XLA can run all halo traffic under the core compute;
-    only the two boundary rows and the two column-edge corrections consume halos.
+    ``overlap=True`` (default) splits interior/boundary like the 1-D path: the core SpMV
+    covers rows [1, rows−1) with LOCAL halo rows, so it has no data dependency on any of
+    the four ppermutes — XLA can run all halo traffic under the core compute; only the
+    two boundary rows and the two column-edge corrections consume halos.
     ``b``: optional (g, g) right-hand side (None → b = ones synthesized in-graph, the
     canonical protocol); ``planes``: optional host (5, g, g) coefficient planes (file
     operands).  Returns (x block-sharded (g, g), CGStats).
@@ -844,9 +818,8 @@ def cg_solve_sharded_2d(mesh: Mesh, grid_size: int, *, mode: str = "stencil5",
     The compiled solve and the sharded planes are cached per (mesh, problem, config) —
     Mesh hashes by content — so repeated benchmark solves measure the solve, never
     retracing (same discipline as the 1-D _SOLVER_CACHE).  BLAS1 stays XLA-fused here
-    (the measured TPU default; the 1-D path carries the Pallas variants for CPU kernel
-    coverage) and every dot accumulates in ≥f32 regardless of the field dtype (a bf16
-    ⟨p,Ap⟩ would corrupt α/β — same rule as blas1._acc_dtype)."""
+    and every dot accumulates in ≥f32 regardless of the field dtype (a bf16 ⟨p,Ap⟩ would
+    corrupt α/β — blas1.dot's rule)."""
     ax_r, ax_c, nr, nc = _check_2d_mesh(mesh, grid_size, mode)
     g = grid_size
     synth_b = b is None
@@ -891,20 +864,14 @@ def cg_solve_sharded_2d_stepped(mesh: Mesh, grid_size: int, *, mode: str = "sten
     g = grid_size
     planes_arg, pspec = _shard_2d_planes(mesh, mode, planes, g, diag, offdiag, dtype)
     block_spec = P(ax_r, ax_c)
-    acc_dt = jnp.float64 if dtype == jnp.float64 else jnp.float32
-    from ..formats import E as _E, W as _W
 
     def _apply(planes_l, p_l, hp, hn, hw, he):
         """Collective-free local block apply: halos PROVIDED (the sync-path math)."""
         if mode == "stencil5-const":
-            y = spmv_stencil5_const_pipelined(p_l, hp, hn, diag=diag, offdiag=offdiag)
-            dw, de = offdiag * hw, offdiag * he
+            y = spmv_stencil5_const_xla(p_l, diag, offdiag, hp, hn)
         else:
-            y = spmv_stencil5_pipelined(planes_l, p_l, hp, hn)
-            wcol = planes_l[_W, :, :1].astype(p_l.dtype)
-            ecol = planes_l[_E, :, -1:].astype(p_l.dtype)
-            dw = wcol * (hw - p_l[:, :1])
-            de = ecol * (he - p_l[:, -1:])
+            y = spmv_stencil5_xla(planes_l, p_l, hp, hn)
+        dw, de = _col_deltas(mode, offdiag, planes_l, p_l, hw, he)
         return y.at[:, :1].add(dw).at[:, -1:].add(de)
 
     halo = jax.jit(jax.shard_map(
@@ -917,8 +884,7 @@ def cg_solve_sharded_2d_stepped(mesh: Mesh, grid_size: int, *, mode: str = "sten
         out_specs=block_spec, check_vma=False,
     ))
     dot_allreduce = jax.jit(jax.shard_map(
-        lambda al, bl: jax.lax.psum(
-            jnp.vdot(al.astype(acc_dt), bl.astype(acc_dt)), (ax_r, ax_c)),
+        lambda al, bl: jax.lax.psum(dot(al, bl), (ax_r, ax_c)),
         mesh=mesh, in_specs=(block_spec, block_spec), out_specs=P(),
         check_vma=False,
     ))
@@ -995,28 +961,26 @@ def cg_solve_sharded_2d_stepped(mesh: Mesh, grid_size: int, *, mode: str = "sten
     return x, stats
 
 
+def _col_deltas(mode, offdiag, planes_l, p_l, hw, he, rows=slice(None)):
+    """The two column-edge terms a block's west/east neighbours add (see section comment)."""
+    from ..formats import E, W
+
+    if mode == "stencil5-const":
+        return offdiag * hw[rows], offdiag * he[rows]
+    wcol = planes_l[W, rows, :1].astype(p_l.dtype)
+    ecol = planes_l[E, rows, -1:].astype(p_l.dtype)
+    return wcol * hw[rows], ecol * he[rows]
+
+
 def _build_2d_solver(mesh, g, mode, diag, offdiag, tolerance, max_iters, dtype, overlap,
                      pspec, synth_b):
     ax_r, ax_c = mesh.axis_names
     nr, nc = (int(mesh.shape[ax_r]), int(mesh.shape[ax_c]))
     axes_both = (ax_r, ax_c)
-    # dots accumulate in ≥f32 even for bf16 fields (the blas1._acc_dtype rule)
-    acc_dt = jnp.float64 if dtype == jnp.float64 else jnp.float32
     from ..formats import C as _C, E as _E, N as _N, S as _S, W as _W
 
-    def _ldot(a, bb):
-        return jnp.vdot(a.astype(acc_dt), bb.astype(acc_dt))
-
     def _gdot(a, bb):
-        return jax.lax.psum(_ldot(a, bb), axes_both)
-
-    def _col_deltas(planes_l, p_l, hw, he, rows=slice(None)):
-        """The two internal column-edge correction terms (see section comment)."""
-        if mode == "stencil5-const":
-            return offdiag * hw[rows], offdiag * he[rows]
-        wcol = planes_l[_W, rows, :1].astype(p_l.dtype)
-        ecol = planes_l[_E, rows, -1:].astype(p_l.dtype)
-        return wcol * (hw[rows] - p_l[rows, :1]), ecol * (he[rows] - p_l[rows, -1:])
+        return jax.lax.psum(dot(a, bb), axes_both)
 
     def _edge_row_y(prow, xrow, xn_row, xs_row, wcell, ecell):
         """One boundary row via XLA, halos INSIDE the shifts (so no masks: a zero halo at
@@ -1031,27 +995,24 @@ def _build_2d_solver(mesh, g, mode, diag, offdiag, tolerance, max_iters, dtype, 
     def local_spmv_dot_sync(planes_l, p_l):
         hp, hn, hw, he = _halo_exchange_2d(p_l, ax_r, nr, ax_c, nc)
         if mode == "stencil5-const":
-            y, dot_loc = spmv_stencil5_const_pipelined(p_l, hp, hn, diag=diag,
-                                                    offdiag=offdiag, with_dot=True)
+            y, dot_loc = spmv_dot_stencil5_const_xla(p_l, diag, offdiag, hp, hn)
         else:
-            y, dot_loc = spmv_stencil5_pipelined(planes_l, p_l, hp, hn, with_dot=True)
-        dw, de = _col_deltas(planes_l, p_l, hw, he)
+            y, dot_loc = spmv_dot_stencil5_xla(planes_l, p_l, hp, hn)
+        dw, de = _col_deltas(mode, offdiag, planes_l, p_l, hw, he)
         y = y.at[:, :1].add(dw).at[:, -1:].add(de)
-        pap_loc = (dot_loc.astype(acc_dt) + _ldot(p_l[:, :1], dw)
-                   + _ldot(p_l[:, -1:], de))
+        pap_loc = dot_loc + dot(p_l[:, :1], dw) + dot(p_l[:, -1:], de)
         return y, jax.lax.psum(pap_loc, axes_both)
 
     def local_spmv_dot_overlapped(planes_l, p_l):
         hp, hn, hw, he = _halo_exchange_2d(p_l, ax_r, nr, ax_c, nc)
         # CORE (rows [1:-1]): local halo rows only — independent of all four ppermutes
         if mode == "stencil5-const":
-            y_core, dot_core = spmv_stencil5_const_pipelined(
-                p_l[1:-1], p_l[0:1], p_l[-1:], diag=diag, offdiag=offdiag,
-                with_dot=True)
+            y_core, dot_core = spmv_dot_stencil5_const_xla(
+                p_l[1:-1], diag, offdiag, p_l[0:1], p_l[-1:])
         else:
-            y_core, dot_core = spmv_stencil5_pipelined(
-                planes_l[:, 1:-1], p_l[1:-1], p_l[0:1], p_l[-1:], with_dot=True)
-        dw, de = _col_deltas(planes_l, p_l, hw, he, rows=slice(1, -1))
+            y_core, dot_core = spmv_dot_stencil5_xla(
+                planes_l[:, 1:-1], p_l[1:-1], p_l[0:1], p_l[-1:])
+        dw, de = _col_deltas(mode, offdiag, planes_l, p_l, hw, he, rows=slice(1, -1))
         y_core = y_core.at[:, :1].add(dw).at[:, -1:].add(de)
         # BOUNDARY rows 0 and −1: cheap XLA math consuming the halos
         p_first = None if mode == "stencil5-const" else planes_l[:, 0:1]
@@ -1059,9 +1020,9 @@ def _build_2d_solver(mesh, g, mode, diag, offdiag, tolerance, max_iters, dtype, 
         y_first = _edge_row_y(p_first, p_l[0:1], hp, p_l[1:2], hw[0:1], he[0:1])
         y_last = _edge_row_y(p_last, p_l[-1:], p_l[-2:-1], hn, hw[-1:], he[-1:])
         y = jnp.concatenate([y_first, y_core, y_last], axis=0)
-        pap_loc = (dot_core.astype(acc_dt)
-                   + _ldot(p_l[1:-1, :1], dw) + _ldot(p_l[1:-1, -1:], de)
-                   + _ldot(p_l[0:1], y_first) + _ldot(p_l[-1:], y_last))
+        pap_loc = (dot_core
+                   + dot(p_l[1:-1, :1], dw) + dot(p_l[1:-1, -1:], de)
+                   + dot(p_l[0:1], y_first) + dot(p_l[-1:], y_last))
         return y, jax.lax.psum(pap_loc, axes_both)
 
     use_overlap = overlap and (g // nr) >= 3
